@@ -1,8 +1,8 @@
 """Example: a two-kernel image pipeline (smooth, then edge-detect).
 
-Shows composing independently-compiled stencils under one jit: each is
-a fused Pallas kernel; XLA schedules them back-to-back on device with
-no host round-trips — the analog of chaining SODA bitstreams without
+Shows composing independently-compiled stencils under one jit: XLA
+schedules both executors back-to-back on device with no host
+round-trips — the analog of chaining SODA bitstreams without
 leaving the accelerator.
 
 Run: python examples/image_pipeline.py

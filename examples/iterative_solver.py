@@ -1,9 +1,9 @@
-"""Example: run a Jacobi relaxation to convergence on TPU.
+"""Example: run a Jacobi relaxation to convergence on the device.
 
-Shows the production pattern for iterative stencils: compile ONE fused
-multi-sweep kernel (here 4 sweeps per launch — one HBM pass for all
-four), then drive it from a jit'd while_loop until the residual drops
-below tolerance. Everything stays on device.
+Shows the production pattern for iterative stencils: compile ONE
+multi-sweep executor (here 4 sweeps per launch), then drive it from a
+jit'd while_loop until the residual drops below tolerance. Everything
+stays on device.
 
 Run: python examples/iterative_solver.py [H] [W]
 """

@@ -1,7 +1,7 @@
 """Example: multi-chip Jacobi relaxation with one dispatch per batch.
 
 Production pattern for large grids: shard over the device mesh
-(ICI halo exchange per sweep-batch), then drive N sweep-batches
+(one halo exchange per sweep-batch), then drive N sweep-batches
 device-side with soda_tpu.chained — ONE dispatch for the whole run,
 arrays stay resident and sharded.
 

@@ -65,13 +65,6 @@ struct Parser {
     pos = static_cast<size_t>(end - s.c_str());
     return v;
   }
-  double parse_double() {
-    skip();
-    char* end = nullptr;
-    double v = std::strtod(s.c_str() + pos, &end);
-    pos = static_cast<size_t>(end - s.c_str());
-    return v;
-  }
   std::string parse_string() {
     expect('"');
     std::string out;
@@ -91,25 +84,11 @@ struct Parser {
   }
 };
 
-// Measured TPU shift prices (protocol key "cost_model", sent by
-// cr_schedules.ExternalSchedules from model/estimate.SHIFT_COST so the
-// native and in-process searches cannot drift): when mode == "tpu",
-// candidates order by slots = num_ops + sum of per-read shift prices
-// (alignment-dependent — exp24 measured 8-aligned sublane / 128-aligned
-// lane rotates ~3x cheaper), with the reference (ops, distance) tuple
-// as the tie-break.
-struct CostModel {
-  bool tpu = false;
-  double lane = 6.5, lane_aligned = 2.0;
-  double sublane = 5.0, sublane_aligned = 2.1;
-};
-
 struct Input {
   std::vector<int64_t> rattrs, aattrs;
   std::vector<int64_t> lin_maxs, lin_mins, lin_sizes;
   int num_pruned = 5;
   bool has_linearizer = false;
-  CostModel cost;
 };
 
 Input parse_input(const std::string& text) {
@@ -126,29 +105,6 @@ Input parse_input(const std::string& text) {
       in.aattrs = p.parse_int_array();
     } else if (key == "num_pruned") {
       in.num_pruned = static_cast<int>(p.parse_int());
-    } else if (key == "cost_model") {
-      p.expect('{');
-      if (!p.consume('}')) {
-        do {
-          std::string ck = p.parse_string();
-          p.expect(':');
-          if (ck == "mode") {
-            in.cost.tpu = p.parse_string() == "tpu";
-          } else if (ck == "lane") {
-            in.cost.lane = p.parse_double();
-          } else if (ck == "lane_aligned") {
-            in.cost.lane_aligned = p.parse_double();
-          } else if (ck == "sublane") {
-            in.cost.sublane = p.parse_double();
-          } else if (ck == "sublane_aligned") {
-            in.cost.sublane_aligned = p.parse_double();
-          } else {
-            std::fprintf(stderr, "unknown cost_model key: %s\n", ck.c_str());
-            std::exit(1);
-          }
-        } while (p.consume(','));
-        p.expect('}');
-      }
     } else if (key == "linearizer") {
       in.has_linearizer = true;
       p.expect('{');
@@ -403,81 +359,6 @@ int64_t distance_bound(const ExprPtr& top) {
   return total;
 }
 
-// Measured price of one shifted read at linear `offset` (the native
-// half of cr_schedules.tpu_shift_price; prices arrive over the
-// protocol). Dim 0 is the lane axis (aligned at multiples of 128),
-// dim 1 the sublane axis (aligned at multiples of 8); higher dims are
-// streaming/major axes shifted by address arithmetic (free).
-double shift_price(int64_t offset, const Linearizer& lin,
-                   const CostModel& cm) {
-  if (offset == 0) return 0.0;
-  std::vector<int64_t> d;
-  if (lin.valid) d = lin.delta(offset);
-  else d.push_back(offset);
-  double slots = 0.0;
-  if (d[0] != 0)
-    slots += (d[0] % 128 == 0) ? cm.lane_aligned : cm.lane;
-  if (d.size() >= 2 && d[1] != 0)
-    slots += (d[1] % 8 == 0) ? cm.sublane_aligned : cm.sublane;
-  return slots;
-}
-
-// Measured-slot scalarization of a tree: one slot per unique operation
-// plus the shift price of every distinct (consumer var, producer,
-// offset) read — the native mirror of CommSchedule.tpu_slots (offsets
-// in each consumer's least-leaf-normalized frame; the Python side's
-// single-use-var inlining is skipped, a documented divergence that
-// only re-prices degenerate single-offset vars).
-double tpu_slots(const ExprPtr& top, const Linearizer& lin,
-                 const CostModel& cm) {
-  std::unordered_map<int64_t, ExprPtr> uniq;
-  std::unordered_map<int64_t, int> count;
-  std::vector<ExprPtr> stack{top};
-  while (!stack.empty()) {
-    ExprPtr e = stack.back();
-    stack.pop_back();
-    ++count[e->id];
-    uniq.emplace(e->id, e);
-    if (e->left) stack.push_back(e->left);
-    if (e->right) stack.push_back(e->right);
-  }
-  std::unordered_map<int64_t, int> var_of;
-  var_of[top->id] = 1;
-  std::vector<ExprPtr> var_exprs{nullptr, top};
-  for (auto& kv : uniq) {
-    if (count[kv.first] > 1 && !var_of.count(kv.first)) {
-      var_of[kv.first] = static_cast<int>(var_exprs.size());
-      var_exprs.push_back(kv.second);
-    }
-  }
-  double slots = static_cast<double>(uniq.size());
-  struct Frame { const Expr* e; int64_t off; };
-  for (size_t dst = 1; dst < var_exprs.size(); ++dst) {
-    // least-leaf-normalized frame (attrs are sorted, so attrs[0]
-    // holds the minimum offset)
-    std::set<std::pair<int64_t, int64_t>> reads;  // (src id, offset)
-    std::vector<Frame> todo{
-        {var_exprs[dst].get(), -var_exprs[dst]->attrs.front().first}};
-    bool is_root = true;
-    while (!todo.empty()) {
-      auto [e, off] = todo.back();
-      todo.pop_back();
-      auto it = var_of.find(e->id);
-      if (!is_root && it != var_of.end()) {
-        reads.emplace(it->second, off + e->attrs.front().first);
-        continue;
-      }
-      is_root = false;
-      if (e->left) todo.push_back({e->left.get(), off});
-      else reads.emplace(0, off);
-      if (e->right) todo.push_back({e->right.get(), off + e->distance});
-      else reads.emplace(0, off + e->distance);
-    }
-    for (auto& [src, off] : reads) slots += shift_price(off, lin, cm);
-  }
-  return slots;
-}
-
 struct Operand {
   int64_t rattr;
   int64_t leaf;     // aattr value if payload == nullptr
@@ -495,10 +376,8 @@ ExprPtr linearize(const std::vector<Operand>& ops) {
   return sched;
 }
 
-// Comparison key: (tpu slots, num_ops, distance bound) when the tpu
-// cost model is active (slots pinned to 0 otherwise, preserving the
-// reference (ops, distance) tuple ordering exactly).
-using CostKey = std::tuple<double, int, int64_t>;
+// Comparison key: the reference (num_ops, distance) tuple.
+using CostKey = std::tuple<int, int64_t>;
 
 struct Candidate {
   std::vector<Operand> ops;
@@ -507,22 +386,19 @@ struct Candidate {
   CostKey key;
 };
 
-CostKey cost_of(const ExprPtr& e, const Linearizer& lin,
-                const CostModel& cm) {
-  double slots = cm.tpu ? tpu_slots(e, lin, cm) : 0.0;
-  return {slots, num_ops(e), distance_bound(e)};
+CostKey cost_of(const ExprPtr& e) {
+  return {num_ops(e), distance_bound(e)};
 }
 
 struct Greedy {
   const Linearizer* lin;
-  const CostModel* cm;
   int beam;
   Clock::time_point deadline;
   ExprPtr best;
-  CostKey best_cost{1e300, INT32_MAX, INT64_MAX};
+  CostKey best_cost{INT32_MAX, INT64_MAX};
 
   void consider(const ExprPtr& e) {
-    auto c = cost_of(e, *lin, *cm);
+    auto c = cost_of(e);
     if (c < best_cost) {
       best_cost = c;
       best = e;
@@ -661,23 +537,16 @@ struct Greedy {
       // then other operations, most pairs first, shortest distance next
       std::vector<const decltype(reuses)::value_type*> rest;
       for (auto& other : reuses) rest.push_back(&other);
-      std::sort(rest.begin(), rest.end(), [this](auto* a, auto* b) {
+      std::sort(rest.begin(), rest.end(), [](auto* a, auto* b) {
         if (a->second.pairs.size() != b->second.pairs.size())
           return a->second.pairs.size() > b->second.pairs.size();
-        if (cm->tpu) {
-          // cheap-shift distances fold first (mirrors the Python
-          // greedy's tpu-mode operation ordering)
-          double pa = shift_price(std::get<0>(a->first), *lin, *cm);
-          double pb = shift_price(std::get<0>(b->first), *lin, *cm);
-          if (pa != pb) return pa < pb;
-        }
         return std::get<0>(a->first) < std::get<0>(b->first);
       });
       for (auto* other : rest) apply(other->first, other->second);
       Candidate cand;
       cand.conflict = kv.second.conflict;
       for (auto& kv2 : new_ops) cand.ops.push_back(kv2.second);
-      cand.key = cost_of(linearize(cand.ops), *lin, *cm);
+      cand.key = cost_of(linearize(cand.ops));
       candidates.push_back(std::move(cand));
     }
     std::sort(candidates.begin(), candidates.end(),
@@ -732,7 +601,6 @@ int main() {
 
   Greedy g;
   g.lin = &lin;
-  g.cm = &in.cost;
   g.beam = std::max(1, in.num_pruned);
   g.deadline = Clock::now() + std::chrono::seconds(60);
   g.consider(linearize(operands));

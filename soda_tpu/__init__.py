@@ -1,8 +1,8 @@
-"""SODA-TPU: a TPU-native stencil dataflow compiler & runtime.
+"""A stencil dataflow compiler & runtime on JAX.
 
 A ground-up rebuild of the capabilities of Blaok/soda (ICCAD'18 / DAC'20)
-targeting TPUs through JAX/XLA/Pallas instead of FPGA HLS. See SURVEY.md
-for the reference layer map this framework mirrors.
+that compiles through JAX/XLA (run on NVIDIA GPUs) instead of FPGA HLS.
+See SURVEY.md for the reference layer map this framework mirrors.
 """
 
 __version__ = '0.1.0'

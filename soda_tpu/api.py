@@ -43,9 +43,9 @@ def chained(executor, n_steps: int):
   """One-dispatch multi-step driver: apply the stencil ``n_steps``
   times device-side, feeding outputs back as inputs.
 
-  Works with any executor exposing ``fn`` (Pallas, XLA, grouped,
-  sharded) — under jit, a sharded executor's halo exchanges run once
-  per step over ICI while arrays stay resident and sharded, so a
+  Works with any executor exposing ``fn`` (XLA, sharded) — under jit,
+  a sharded executor's halo exchanges run once per step while arrays
+  stay resident and sharded, so a
   long relaxation pays ONE dispatch instead of one per sweep-batch.
   Requires a chainable signature: as many outputs as inputs, with
   matching dtypes (the same precondition as ``iterate > 1``).

@@ -1,100 +1,37 @@
 """Execution backends.
 
 - reference: NumPy oracle (C semantics, the correctness gold standard)
-- xla:       whole-grid jitted stages (works at any size; XLA blocks)
-- pallas:    one fused kernel streaming VMEM slabs (fastest; needs the
-             cross-section to fit the VMEM budget)
-- get_executor: auto-dispatch between them
+- xla:       whole-grid jitted stages (plain jnp slice arithmetic that
+             XLA compiles for whatever device JAX runs on)
+- get_executor: dispatch by backend name
 """
 
 from __future__ import annotations
 
-import logging
-from typing import Optional, Tuple
+from typing import Tuple
 
-_logger = logging.getLogger().getChild(__name__)
+from soda_tpu import utils
 
-
-def pallas_fits(stencil, shape: Tuple[int, ...],
-                budget: Optional[int] = None) -> bool:
-  """Whether the fused Pallas kernel's working set fits the VMEM budget
-  at the minimum block size (same estimator as choose_block_rows)."""
-  from soda_tpu.backend import pallas_kernel
-  from soda_tpu.backend.plan import make_plan
-  plan = make_plan(stencil, 'full')
-  if plan.dim < 2:
-    return False
-  budget = budget or pallas_kernel._VMEM_BUDGET
-  # estimate the VALUE-mode path (the common auto stage mode); if the
-  # constructor resolves to vmem and overflows, get_executor's
-  # construct-probe falls back to XLA
-  return pallas_kernel.estimate_vmem(plan, shape, 8, 'value') <= budget
-
-
-def _build_pallas(stencil, shape, **kwargs):
-  if (stencil.cluster or 'none') in ('coarse', 'fine'):
-    # per-stage-group kernels with HBM handoff (the reference's
-    # cluster granularities, cluster.py:51-202; fine == coarse on
-    # TPU — the per-PE split has no analog below one kernel)
-    from soda_tpu.backend.grouped import GroupedPallasExecutor
-    return GroupedPallasExecutor(stencil, shape, **kwargs)
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
-  return PallasExecutor(stencil, shape, **kwargs)
+# Configuration of the retired fused Mosaic kernel. Passing one is an
+# error rather than a silent no-op, so old call sites fail loudly.
+RETIRED_KERNEL_OPTIONS = frozenset((
+    'block_rows', 'stage_mode', 'shift_mode', 'lane_shift',
+    'transpose_lanes', 'stream_loop', 'prefetch', 'dma_split', 'mid_tile',
+    'narrow', 'compute_chunk'))
 
 
 def get_executor(stencil, shape: Tuple[int, ...], backend: str = 'auto',
                  **kwargs):
-  """Build an executor: 'pallas', 'xla', 'sharded', 'replicated', or
-  'auto' (pallas when the working set fits VMEM, else xla)."""
-  from soda_tpu import utils
-  auto = backend == 'auto'
-  if auto:
-    from soda_tpu.backend import semantics as _sem
-    import jax as _jax
-    if _sem.has_half(stencil) and _jax.default_backend() == 'tpu':
-      # Mosaic has no f16; XLA:TPU computes half natively
-      backend = 'xla'
-    elif pallas_fits(stencil, shape):
-      backend = 'pallas'
-    elif len(shape) == 3:
-      # oversized cross-section: mid-dimension tiling over the fused
-      # kernel (halo-overlapped, reference host-tiling analog)
-      from soda_tpu.backend.pallas_kernel import MidTiledPallasExecutor
-      try:
-        return MidTiledPallasExecutor(stencil, shape, **kwargs)
-      except utils.InputError as e:
-        # expected: halo exceeds tile / cross-section still too large;
-        # anything else (plan/estimator bugs) propagates loudly
-        _logger.warning(
-            'mid-tiled Pallas not applicable (%s); falling back to the '
-            'XLA whole-grid backend', e)
-        backend = 'xla'
-    else:
-      backend = 'xla'
-  if backend == 'pallas':
-    if not auto:
-      return _build_pallas(stencil, shape, **kwargs)
-    # under 'auto', the fits estimate (block 8, vmem mode) and the
-    # constructor's legality gate (halo-clamped minimum block, auto
-    # stage mode) can disagree for deep-halo pipelines; fall back to
-    # XLA like the 3-D path instead of propagating
-    try:
-      return _build_pallas(stencil, shape, **kwargs)
-    except utils.InputError as e:
-      _logger.warning(
-          'fused Pallas kernel not applicable (%s); falling back to '
-          'the XLA whole-grid backend', e)
-      backend = 'xla'
-  if backend == 'xla':
+  """Build an executor: 'xla' (also what 'auto' picks), 'sharded' or
+  'replicated'."""
+  retired = sorted(RETIRED_KERNEL_OPTIONS.intersection(kwargs))
+  if backend == 'pallas' or retired:
+    raise utils.InputError(
+        'the fused Pallas kernel and its options (%s) were removed; the '
+        "XLA executor ('auto' or 'xla') runs every stencil" %
+        (', '.join(retired) or "backend='pallas'"))
+  if backend in ('auto', 'xla'):
     from soda_tpu.backend.xla import XlaExecutor
-    if auto and kwargs:
-      # 'auto' fell back from the fused kernel: its config knobs have
-      # no XLA analog — drop them loudly rather than TypeError
-      dropped = {k: kwargs.pop(k) for k in list(kwargs)
-                 if k != 'interpret'}
-      if dropped:
-        _logger.warning('XLA fallback ignores fused-kernel options: %s',
-                        sorted(dropped))
     return XlaExecutor(stencil, shape, **kwargs)
   if backend == 'sharded':
     from soda_tpu.parallel.spmd import ShardedExecutor

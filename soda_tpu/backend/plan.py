@@ -1,28 +1,26 @@
-"""Fusion planning: the TPU-native analog of the reference's dataflow layer.
+"""Fusion planning: the analog of the reference's dataflow layer.
 
 The reference lowers a Stencil into an explicit FIFO module graph
-(/root/reference/src/soda/dataflow.py) because its target is a spatial
-dataflow architecture. On TPU, all of that machinery collapses into a
-*fusion plan*: a chronological stage schedule (one stage per non-input
-tensor), per-stage load-offset/margin tables that drive shifted reads,
-and a grouping of stages into kernels controlled by the ``cluster``
+(dataflow.py) because its target is a spatial dataflow architecture.
+Here all of that machinery collapses into a *fusion plan*: a
+chronological stage schedule (one stage per non-input tensor),
+per-stage load-offset/margin tables that drive shifted reads, and a
+grouping of stages into jitted regions controlled by the ``cluster``
 granularity knob (reference cluster.py:51-202 — here a backend fusion
 decision rather than an IR rewrite):
 
-  - ``none`` / ``full``: every stage fused into ONE kernel (values flow
-    through registers/VMEM where the reference used FIFOs).
-  - ``coarse``: one kernel per stage (debugging / VMEM pressure).
+  - ``none`` / ``full``: every stage traced into ONE jitted region, so
+    XLA may fuse stages where the reference used FIFOs.
+  - ``coarse``: one jitted region per stage.
   - ``fine``: accepted and treated as ``coarse``. The reference's fine
     granularity splits each stage per unroll PE id (cluster.py:84-94);
-    on TPU there is no schedulable unit below one kernel — the VPU's
-    8x128 lanes already are the "PEs" — so no lane-group split exists.
+    a jitted region has no schedulable unit below one stage.
 
 Array-axis convention (used by every executor in this package): public
 arrays are indexed in REVERSED DSL-dimension order — DSL dimension 0
 (the contiguous, stride-1 dimension of the reference's column-major
-serialization, soda/util.py:9) is the minor-most array axis, and the
-streaming dimension (`*`) is axis 0. This maps the streaming dimension
-onto TPU sublane blocks and dimension 0 onto the 128-wide lane axis.
+serialization, soda/util.py:9) is the minor-most (contiguous) array
+axis, and the streaming dimension (`*`) is axis 0.
 """
 
 from __future__ import annotations
@@ -166,26 +164,6 @@ class FusionPlan:
         return s
     raise KeyError(name)
 
-  # -- resource estimation (the analog of FIFO-depth accounting) --------------
-  def vmem_bytes(self, block_shape: Sequence[int]) -> int:
-    """Estimated VMEM bytes for one fused-kernel block of
-    ``block_shape`` (array-axis order), counting each stage's slab plus
-    its halo margins. The analog of the reference's FIFO-depth ILP
-    objective sum(width x depth) (dataflow.py:132-166)."""
-    total = 0
-    shape_dsl = tuple(reversed(tuple(block_shape)))
-    for stage in self.stages:
-      cells = 1
-      for d in range(len(shape_dsl)):
-        cells *= shape_dsl[d] + stage.lo[d] + stage.hi[d]
-      total += cells * stage.dtype.width_in_bytes
-    for name in self.stencil.input_names:
-      cells = 1
-      for d, extent in enumerate(shape_dsl):
-        cells *= extent + self.halo_lo[d] + self.halo_hi[d]
-      total += cells * self.stencil.symbol_table[name].width_in_bytes
-    return total
-
   def dot(self) -> str:
     """Graphviz dump of the stage DAG (observability parity with the
     reference's SuperSourceNode graphviz hook, dataflow.py:36-41)."""
@@ -202,109 +180,13 @@ class FusionPlan:
     return '\n'.join(lines)
 
 
-def _peak_live(stages: Sequence[Stage], outputs, consumers) -> int:
-  """Peak count of simultaneously-live stage values under an order.
-
-  A stage's value is live from its execution until its last consumer
-  executes (outputs stay live to the final store). This is the cost the
-  value-mode kernel pays in Mosaic-managed VMEM, and the vmem-mode
-  kernel pays in scratch slots (scratch_slots reuses dead slabs).
-  """
-  remaining = {n: set(c) for n, c in consumers.items()}
-  live = set()
-  peak = 0
-  for s in stages:
-    live.add(s.name)
-    for p in set(s.tensor.ld_refs):
-      if p in remaining:
-        remaining[p].discard(s.name)
-        if not remaining[p] and p not in outputs:
-          live.discard(p)
-    peak = max(peak, len(live))
-  return peak
-
-
-def _liveness_order(stages: List[Stage], output_names) -> List[Stage]:
-  """Topological stage order minimizing peak value liveness.
-
-  The register-sufficiency analog of the reference's FIFO-depth ILP
-  (dataflow.py:94-176): CR-heavy pipelines (contrast: 115 reuse
-  variables) spill under the chronological order because every leaf is
-  computed before any combine. A Sethi-Ullman-style DFS post-order from
-  the outputs — visiting the register-hungriest subtree first —
-  completes each subtree before starting a sibling. Returns whichever
-  of {chronological, DFS} simulates fewer simultaneously-live values
-  (so simple pipelines keep their familiar order).
-  """
-  by_name = {s.name: s for s in stages}
-  outputs = set(output_names)
-  consumers: Dict[str, set] = {n: set() for n in by_name}
-  for s in stages:
-    for p in s.tensor.ld_refs:
-      if p in consumers:
-        consumers[p].add(s.name)
-
-  su: Dict[str, int] = {}  # Sethi-Ullman register estimate per subtree
-
-  def su_of(name: str) -> int:
-    stack = [name]
-    while stack:
-      n = stack[-1]
-      if n in su:
-        stack.pop()
-        continue
-      parents = [p for p in set(by_name[n].tensor.ld_refs) if p in by_name]
-      pending = [p for p in parents if p not in su]
-      if pending:
-        stack.extend(pending)
-        continue
-      stack.pop()
-      if not parents:
-        su[n] = 1
-      else:
-        nums = sorted((su[p] for p in parents), reverse=True)
-        su[n] = max(x + i for i, x in enumerate(nums))
-    return su[name]
-
-  emitted = set()
-  order: List[Stage] = []
-
-  def emit(name: str) -> None:
-    stack = [name]
-    while stack:
-      n = stack[-1]
-      if n in emitted:
-        stack.pop()
-        continue
-      pending = [p for p in set(by_name[n].tensor.ld_refs)
-                 if p in by_name and p not in emitted]
-      if pending:
-        # hungriest subtree first (classic Sethi-Ullman order)
-        stack.extend(sorted(pending, key=su_of))
-        continue
-      stack.pop()
-      emitted.add(n)
-      order.append(by_name[n])
-
-  for out in output_names:
-    if out in by_name:
-      emit(out)
-  for s in stages:  # dead stages (no path to an output) keep their spot
-    if s.name not in emitted:
-      emit(s.name)
-  if _peak_live(order, outputs, consumers) < \
-      _peak_live(stages, outputs, consumers):
-    return order
-  return stages
-
-
 def make_plan(stencil, cluster: Optional[str] = None) -> FusionPlan:
   """Build the fusion plan for ``stencil``.
 
   ``cluster`` overrides the stencil's cluster directive; ``none`` and
-  ``full`` both mean one fused kernel (on TPU fusion is the default —
-  the reference's ``none`` kept modules separate because FIFOs were
-  free on an FPGA; on TPU separate kernels round-trip HBM).
+  ``full`` both mean one jitted region (fusion is the default — the
+  reference's ``none`` kept modules separate because FIFOs were free on
+  an FPGA; here separate regions round-trip device memory).
   """
   cluster = cluster or stencil.cluster or 'none'
   from soda_tpu.optimization import ranges
@@ -320,7 +202,6 @@ def make_plan(stencil, cluster: Optional[str] = None) -> FusionPlan:
       stage.load_offsets[parent_name] = tuple(
           stage.rel_offset(ref.idx) for ref in refs)
     stages.append(stage)
-  stages = _liveness_order(stages, stencil.output_names)
 
   if cluster in ('none', 'full'):
     groups = [list(stages)]

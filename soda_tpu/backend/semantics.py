@@ -8,8 +8,8 @@ wrap-around only at statement stores and explicit casts — while float
 arithmetic runs at the operands' native precision.
 
 This module implements exactly those semantics once, parameterized over
-the array namespace (``numpy`` for the oracle, ``jax.numpy`` for the XLA
-and Pallas backends), so every executor in the framework shares one
+the array namespace (``numpy`` for the oracle, ``jax.numpy`` for the
+JAX executors), so every executor in the framework shares one
 definition of "what a statement means".
 """
 
@@ -90,39 +90,6 @@ def _as(xp, value, dtype: Type):
   return xp.asarray(value).astype(dtype.np_dtype)
 
 
-def wrap_promoted(xp, value, dtype: Type, wrap_free: bool = False):
-  """Like ``wrap`` but keeps integer results at their C-promoted width.
-
-  A sub-32-bit stage value stored at width w and immediately re-promoted
-  by every consumer (C's usual arithmetic conversions) is numerically
-  identical to the promoted-width value wrapped into w's range — so an
-  executor that keeps stage results in registers can skip the
-  narrow/re-widen relayouts entirely: apply the modular wrap in the
-  promoted type (3 cheap ALU ops), or nothing at all when the range
-  analysis proved the value already fits (``wrap_free``,
-  soda_tpu.optimization.ranges). Floats behave exactly like ``wrap``.
-  """
-  if dtype.is_float:
-    return wrap(xp, value, dtype)
-  ptype = promote(dtype)
-  value = xp.asarray(value)
-  if value.dtype.kind == 'f':
-    # C float->int conversion truncates toward zero (as does XLA's and
-    # NumPy's float->signed-int convert)
-    value = xp.trunc(value).astype(ptype.np_dtype)
-  elif value.dtype != ptype.np_dtype:
-    value = value.astype(ptype.np_dtype)
-  n = dtype.width_in_bits
-  if wrap_free or n >= ptype.width_in_bits:
-    return value
-  mask = xp.asarray((1 << n) - 1, dtype=ptype.np_dtype)
-  value = value & mask
-  if dtype.is_signed:
-    sign = xp.asarray(1 << (n - 1), dtype=ptype.np_dtype)
-    value = (value ^ sign) - sign
-  return value
-
-
 def _all_types(stencil):
   """Every type the program touches: declared tensors/params, in-expr
   casts, and typed lets (casts to half/double are invisible in the
@@ -146,11 +113,11 @@ def _all_types(stencil):
 
 
 def require_f64_support(stencil) -> None:
-  """Raise a clear error when a 64-bit-typed stencil hits a JAX
-  backend without x64: TPUs have no f64 units, and JAX silently
-  truncates float64/int64 astype — double would crash on dtype
-  mismatches mid-kernel and wide ints would silently wrap at 32 bits
-  against the oracle. The NumPy oracle supports all widths."""
+  """Raise a clear error when a 64-bit-typed stencil meets JAX with
+  ``jax_enable_x64`` off: JAX then silently truncates float64/int64
+  astype, so double would crash on dtype mismatches mid-kernel and
+  wide ints would silently wrap at 32 bits against the oracle. The
+  NumPy oracle supports all widths."""
   import jax
   if jax.config.jax_enable_x64:
     return
@@ -161,16 +128,10 @@ def require_f64_support(stencil) -> None:
     wide_int = not t.is_float and t.width_in_bits > 32
     if wide_float or wide_int:
       raise utils.InputError(
-          'type %s needs 64-bit support, but this backend runs '
-          'without x64 (TPUs have no f64/i64 units; JAX silently '
-          'truncates). Use <=32-bit types, or enable jax_enable_x64 '
-          'for CPU execution; the NumPy oracle (backend.reference) '
-          'supports every width.' % t)
-
-
-def has_half(stencil) -> bool:
-  return any(t is not None and t.is_float and t.width_in_bits == 16
-             for t in _all_types(stencil))
+          'type %s needs 64-bit types, but jax_enable_x64 is off '
+          '(JAX would silently truncate to 32 bits). Use <=32-bit '
+          'types or enable jax_enable_x64; the NumPy oracle '
+          '(backend.reference) supports every width.' % t)
 
 
 def _pow2_exponent(node) -> 'Optional[int]':
@@ -216,26 +177,19 @@ class Evaluator:
                env: Optional[Dict[str, Tuple[Any, Optional[Type]]]] = None,
                param: Optional[Callable[[str, Tuple[int, ...]], Any]] = None,
                fast_int_div: bool = False,
-               fast_rsqrt: bool = False,
-               narrow: bool = False):
+               fast_rsqrt: bool = False):
     self.xp = xp
     self.load = load
     self.env = dict(env or {})
     self.param = param
-    # narrow: evaluate integer arithmetic at 16-bit width instead of
-    # the C-promoted 32 (2x VPU lane density). ONLY sound for
-    # expressions the narrow16_stages analysis admitted (+/&/|/^ over
-    # int loads and literals, result needed mod 2^16 at most —
-    # optimization/ranges.py): truncating every operand to 16 bits
-    # preserves the result's low 16 bits under those ops.
-    self.narrow = narrow
     # strength-reduce integer division to a float32 divide where the
     # range analysis proved it bit-exact (soda_tpu.optimization.ranges);
     # the oracle keeps pure C division so tests differentially verify
     # the proof
     self.fast_int_div = fast_int_div
-    # x / sqrt(y) -> x * rsqrt(y) (TPU-native; within a couple of ulps
-    # of the divide, well inside the reference THRESHOLD). Only the
+    # x / sqrt(y) -> x * rsqrt(y): one hardware reciprocal square root
+    # instead of a square root and a divide, within a couple of ulps of
+    # the divide (well inside the reference THRESHOLD). Only the
     # jax-backed executors set this; the oracle keeps sqrt + divide so
     # tests differentially bound the substitution's error.
     self.fast_rsqrt = fast_rsqrt
@@ -268,10 +222,9 @@ class Evaluator:
       if (dtype is not None and dtype.is_float and
           dtype.width_in_bits == 16):
         # half is a STORAGE format: arithmetic runs at float32 and
-        # rounds to f16 at stage stores (TPU-native — the VPU has no
-        # f16 arithmetic; same shape as the sub-32-bit int promotion).
-        # The oracle applies the identical rule, so all executors
-        # share one half-precision semantic.
+        # rounds to f16 at stage stores (the same shape as the
+        # sub-32-bit int promotion). The oracle applies the identical
+        # rule, so all executors share one half-precision semantic.
         value = _as(xp, value, Type('float'))
         dtype = Type('float')
       return value, dtype
@@ -285,14 +238,6 @@ class Evaluator:
       return self.env[node.name]
     if isinstance(node, ir.Cast):
       value, _ = self.eval(node.expr)
-      if self.narrow and node.dtype is not None and \
-          not node.dtype.is_float and node.dtype.width_in_bits >= 16:
-        # narrow evaluation: an int wrap of width >= 16 is the
-        # identity on the 16-bit representation (mod-2^16 congruence
-        # passes through); a 16-bit target just fixes the signedness
-        if node.dtype.width_in_bits == 16:
-          value = _as(xp, value, node.dtype)
-        return value, node.dtype
       return wrap(xp, value, node.dtype), node.dtype
     if isinstance(node, ir.Unary):
       value, dtype = self.eval(node.operand)
@@ -327,24 +272,16 @@ class Evaluator:
     raise utils.InternalError('cannot evaluate %r' % node)
 
   def _coerce_pair(self, av, at, bv, bt):
-    """Bring two operands to their common C arithmetic type (or the
-    16-bit narrow type when this evaluator runs narrow)."""
+    """Bring two operands to their common C arithmetic type."""
     xp = self.xp
-    if self.narrow and (at is None or not at.is_float) and \
-        (bt is None or not bt.is_float):
-      # 16-bit rank rules: unsigned wins (C at equal rank); sign
-      # extension differences vanish mod 2^16
-      unsigned = any(t is not None and not t.is_signed for t in (at, bt))
-      out = Type('uint16' if unsigned else 'int16')
-      return _as(xp, av, out), _as(xp, bv, out), out
     out = binary_type(at, bt)
     return _as(xp, av, out), _as(xp, bv, out), out
 
   def _eval_chain(self, node) -> Tuple[Any, Optional[Type]]:
     xp = self.xp
     # operands are evaluated LAZILY, one per fold step: long reduction
-    # chains (e.g. a 19-tap sum) then keep at most two slab-sized
-    # temporaries live, which is what lets Mosaic bound VMEM stack usage
+    # chains (e.g. a 19-tap sum) then keep at most two grid-sized
+    # temporaries live in the eager NumPy oracle
     div_ok = getattr(node, 'div_f32_ok', None) if self.fast_int_div \
         else None
     acc, acc_t = self.eval(node.operand[0])
@@ -374,9 +311,8 @@ class Evaluator:
           acc = acc / val
         elif k is not None:
           # division by a constant 2^k: exact truncating shift (the
-          # bias rounds negatives toward zero, ISO C99 §6.5.5) — the
-          # VPU has no integer divider, so the general lowering is a
-          # long op sequence; this is 1-3 cheap ALU ops
+          # bias rounds negatives toward zero, ISO C99 §6.5.5) — 1-3
+          # integer ops instead of the general C division sequence
           if out.is_signed:
             bias = xp.right_shift(acc, out.width_in_bits - 1) & \
                 ((1 << k) - 1)
@@ -422,10 +358,8 @@ class Evaluator:
     xp = self.xp
     name = node.name
     if name in ('min', 'max'):
-      # lazy fold (see _eval_chain): bounds live temporaries.
-      # NOTE: min/max would be bit-identical without integer promotion
-      # (and 2x faster at 16 bits), but current Mosaic cannot legalize
-      # sub-32-bit arith.minsi — so ints keep the C promotion.
+      # lazy fold (see _eval_chain): bounds live temporaries. Ints
+      # keep the C promotion (min/max are bit-identical either way)
       fn = xp.minimum if name == 'min' else xp.maximum
       acc, acc_t = self.eval(node.operand[0])
       for opd in node.operand[1:]:

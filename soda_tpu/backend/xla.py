@@ -1,13 +1,12 @@
 """XLA whole-grid executor: stencil stages as fused jnp slice arithmetic.
 
-The TPU-native replacement for the reference's generated HLS kernel +
-host pair in its software paths: every stage of the fusion plan becomes
-shifted static slices of its parents plus elementwise arithmetic, all
-traced into one ``jax.jit`` region per kernel group so XLA fuses the
-entire multi-stage pipeline into a minimal number of HBM passes.
-(The reference's FIFO network between modules — dataflow.py:336-625 —
-is exactly what XLA fusion replaces; values flow through
-registers/VMEM.)
+The replacement for the reference's generated HLS kernel + host pair:
+every stage of the fusion plan becomes shifted static slices of its
+parents plus elementwise arithmetic, all traced into one ``jax.jit``
+region per kernel group so XLA fuses the multi-stage pipeline into as
+few device-memory passes as it can. (The reference's FIFO network
+between modules — dataflow.py:336-625 — is what XLA fusion replaces.)
+This is the single-device executor on every platform.
 
 Semantics are identical to the NumPy oracle: same Evaluator (C
 arithmetic), same per-stage valid regions with zero margins.
@@ -81,12 +80,12 @@ class XlaExecutor:
     stencil: a core.Stencil.
     shape: full array shape (array-axis order, streaming axis first).
     cluster: fusion granularity override; ``none``/``full`` trace all
-      stages into one jit (one fused kernel), ``coarse`` jits each
-      stage separately (debugging / staging analysis).
+      stages into one jit, ``coarse``/``fine`` jit each stage
+      separately (one device-memory handoff per stage).
   """
 
   def __init__(self, stencil, shape: Tuple[int, ...],
-               cluster: Optional[str] = None, jit: bool = True):
+               cluster: Optional[str] = None):
     import jax
     import jax.numpy as jnp
     self.stencil = stencil
@@ -98,7 +97,7 @@ class XlaExecutor:
     self._group_fns = []
     for group in self.plan.groups:
       fn = functools.partial(self._run_group, tuple(s.name for s in group))
-      self._group_fns.append(jax.jit(fn) if jit else fn)
+      self._group_fns.append(jax.jit(fn))
 
   def _run_group(self, stage_names, arrays: Dict, params: Dict) -> Dict:
     jnp = self._jnp
@@ -116,8 +115,8 @@ class XlaExecutor:
   @property
   def fn(self):
     """Jittable positional callable: fn(*inputs, *params) ->
-    (outputs...) — the same contract as PallasExecutor.fn, so the
-    replication/chained drivers compose with the XLA backend too."""
+    (outputs...), the contract the replication and chained drivers
+    compose with; prepare arguments with ``prepare``."""
     stencil = self.stencil
     n_in = len(stencil.input_names)
 
@@ -137,17 +136,11 @@ class XlaExecutor:
 
   def prepare(self, inputs: Mapping[str, np.ndarray],
               params: Optional[Mapping[str, np.ndarray]] = None):
-    """Wrap + order arguments positionally for ``fn``."""
-    from soda_tpu.backend.pallas_kernel import _prepare_args
-    return _prepare_args(self, inputs, params)
-
-  def __call__(self,
-               inputs: Mapping[str, np.ndarray],
-               params: Optional[Mapping[str, np.ndarray]] = None
-               ) -> Dict[str, np.ndarray]:
+    """Wrap + device-put arguments (positional order for ``fn``)."""
+    import jax
     jnp = self._jnp
     stencil = self.stencil
-    arrays: Dict[str, object] = {}
+    args = []
     for name in stencil.input_names:
       if name not in inputs:
         raise utils.InputError('missing input: %s' % name)
@@ -155,20 +148,18 @@ class XlaExecutor:
       if arr.shape != self.shape:
         raise utils.InputError('input %s shape %s != compiled shape %s' %
                                (name, arr.shape, self.shape))
-      arrays[name] = semantics.wrap(jnp, arr, stencil.symbol_table[name])
-    params = {k: jnp.asarray(v) for k, v in dict(params or {}).items()}
+      args.append(jax.device_put(
+          semantics.wrap(jnp, arr, stencil.symbol_table[name])))
+    params = dict(params or {})
     for name in stencil.param_names:
       if name not in params:
         raise utils.InputError('missing param: %s' % name)
-    for fn in self._group_fns:
-      arrays.update(fn(arrays, params))
-    outs = {name: arrays[name] for name in stencil.output_names}
-    if stencil.preserve_border:
-      from soda_tpu.backend.reference import preserve_border_fixup
-      outs = preserve_border_fixup(jnp, stencil, self.shape,
-                                   lambda n: arrays[n], outs)
-    return outs
+      args.append(jax.device_put(jnp.asarray(params[name])))
+    return tuple(args)
 
-
-def compile_stencil(stencil, shape, **kwargs) -> XlaExecutor:
-  return XlaExecutor(stencil, shape, **kwargs)
+  def __call__(self,
+               inputs: Mapping[str, np.ndarray],
+               params: Optional[Mapping[str, np.ndarray]] = None
+               ) -> Dict[str, np.ndarray]:
+    outs = self.fn(*self.prepare(inputs, params))
+    return dict(zip(self.stencil.output_names, outs))

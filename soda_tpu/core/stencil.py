@@ -7,8 +7,8 @@ exactly with scipy's HiGHS; the constraint matrix is a difference system,
 so LP relaxation is integral), and overall stencil-window analytics
 (the role of core.py:858-926) driving valid-region / halo computation.
 The reference's FIFO reuse-chain construction (core.py:684-795) has no
-TPU counterpart — line buffers collapse into VMEM slabs sized by the
-fusion planner (backend/plan.py) — and is deliberately absent.
+counterpart here — line buffers collapse into shifted whole-array
+slices planned by backend/plan.py — and is deliberately absent.
 """
 
 from __future__ import annotations
@@ -101,8 +101,8 @@ class Stencil:
       stmt.let = arithmetic.simplify(stmt.let)
 
     # pass pipeline: CR -> inline (opt-in) -> rebalance (reference
-    # core.py:134-139); cluster on TPU is a backend fusion knob, not an
-    # IR pass, and is consumed by soda_tpu.backend.plan.
+    # core.py:134-139); cluster is a backend fusion knob, not an IR
+    # pass, and is consumed by soda_tpu.backend.plan.
     self._cr_counter = 0
     from soda_tpu.optimization import computation_reuse as cr
     from soda_tpu.optimization import inline

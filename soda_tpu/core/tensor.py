@@ -2,7 +2,7 @@
 
 One Tensor per input / local / output statement (after
 iterate-unrolling). Serves the same role as the reference's
-src/soda/tensor.py Tensor, redesigned around what the TPU pipeline
+src/soda/tensor.py Tensor, redesigned around what this pipeline
 actually consumes: the reuse-offset LP reads ``load_offsets``; the
 fusion planner (backend/plan.py) reads ``ld_refs``/``st_idx``; the
 executors evaluate ``lets``/``expr``. FPGA-era per-access FIFO tables

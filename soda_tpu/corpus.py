@@ -255,7 +255,7 @@ CORPUS: Dict[str, str] = {
 
 # Small array shapes for functional tests, in array-axis order
 # (reversed DSL dims: streaming dimension first, DSL dim 0 last/minor).
-# Big benchmark shapes live in bench.py.
+# Device-sized grids are DEVICE_DIMS below.
 TEST_DIMS: Dict[str, Tuple[int, ...]] = {
     'blur': (40, 64),
     'contrast': (40, 64),
@@ -287,3 +287,19 @@ def build(name: str, **overrides):
   if name in TEST_TILE_SIZES and 'tile_size' not in overrides:
     overrides['tile_size'] = TEST_TILE_SIZES[name]
   return api.build_stencil(CORPUS[name], **overrides)
+
+
+# Grids for runs on the device: 2**26 cells, so every f32 array is
+# 256 MiB and one pass of every kernel moves at least 4x the 50 MB L2
+# of an NVIDIA H100 (the 16-bit kernels move 128 MiB in + 128 MiB out).
+DEVICE_DIMS: Dict[str, Tuple[int, ...]] = {
+    name: (1024, 256, 256) if name.endswith('3d') else (8192, 8192)
+    for name in CORPUS
+}
+
+
+def build_for_grid(name: str, shape: Tuple[int, ...], **overrides):
+  """Build a corpus Stencil whose DSL tile size matches ``shape``'s
+  non-streaming extents (the analog of sodac's --tile-size)."""
+  overrides.setdefault('tile_size', tuple(reversed(shape[1:])) + (0,))
+  return build(name, **overrides)

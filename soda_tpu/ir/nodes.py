@@ -1,4 +1,4 @@
-"""Expression IR for SODA-TPU.
+"""Expression IR of the stencil compiler.
 
 This is the rebuild's equivalent of the external ``haoda.ir`` expression
 layer that the reference imports everywhere (reconstructed interface in

@@ -1,4 +1,4 @@
-"""Scalar type system for the SODA-TPU stencil IR.
+"""Scalar type system for the stencil IR.
 
 Plays the role of the external ``haoda.ir.Type`` in the reference
 (see /root/reference/src/soda/grammar.py:10 and SURVEY.md §2.9), redesigned

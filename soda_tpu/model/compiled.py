@@ -2,11 +2,9 @@
 
 Where the reference reads Vivado HLS csynth reports after synthesis to
 learn real resource usage and pipeline depths (rtl_kernel.py:76-95,
-model/resource.py), the TPU analog interrogates the XLA-compiled
+model/resource.py), the analog here interrogates the XLA-compiled
 executable: FLOP counts, bytes accessed, and per-memory-space peak
-usage. The fusion planner's VMEM estimates can be validated against
-these, the same way the reference re-solves FIFO depths with measured
-latencies (rtl_kernel.py:97-98).
+usage.
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Analytic performance / resource model for TPU stencil execution.
+"""Analytic roofline estimate for stencil execution.
 
 The analog of the reference's pre-synthesis estimator
-(/root/reference/src/soda/model/xilinx.py:34-196): where that model sums
-per-module BRAM/DSP/FF/LUT costs and caps throughput at DRAM bandwidth
-(`performance = unroll_factor x target_freq`, capped by
-`dram_bandwidth x banks / bytes-per-pixel`, model/xilinx.py:131-144),
-this one computes
+(/root/reference/src/soda/model/xilinx.py:34-196): where that model caps
+throughput at DRAM bandwidth (`performance = unroll_factor x
+target_freq`, capped by `dram_bandwidth x banks / bytes-per-pixel`,
+model/xilinx.py:131-144), this one computes, device-neutrally,
 
-  * HBM traffic per pass (inputs read once + outputs written once —
-    the fused kernel's contract),
-  * compute work per cell from the IR (adds/muls/divs/transcendentals),
-  * the roofline bound min(bandwidth bound, vector-unit bound) in
-    cells/s, with iterate>1 counting as `iterate` sweeps per pass,
-  * the VMEM working set of the fused Pallas kernel (slab accounting,
-    the analog of BRAM FIFO sizing) and the chosen block size.
+  * device-memory traffic per pass (inputs read once + outputs written
+    once),
+  * arithmetic operations per cell over the post-unroll, post-reuse
+    stage schedule,
+
+and divides them by a device's published peaks: the roofline time is
+the larger of bytes / bandwidth and operations / peak rate, and the
+report says which of the two binds.
 """
 
 from __future__ import annotations
@@ -23,110 +23,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from soda_tpu.backend import pallas_kernel
 from soda_tpu.backend.plan import make_plan
 from soda_tpu.ir import nodes as ir
 
-# (substring of device_kind, HBM GB/s, VPU f32 GFLOP/s)
-DEVICE_TABLE = (
-    ('v5 lite', 819.0, 3_850.0),
-    ('v5e', 819.0, 3_850.0),
-    ('v5p', 2_765.0, 11_500.0),
-    ('v4', 1_228.0, 4_300.0),
-    ('v6 lite', 1_640.0, 7_300.0),
-    ('v6e', 1_640.0, 7_300.0),
-)
-DEFAULT_DEVICE = ('generic-tpu', 819.0, 3_850.0)
-
-# The shifted-load tax, in equivalent 32-bit element-ops (units of
-# 1/peak_vpu), calibrated on v5e (experiments/exp4_erosion.py chain
-# kernels give the latency-bound upper end: aligned-sublane ~3,
-# misaligned ~5, wide-lane ~6.5; end-to-end tree-shaped kernels
-# schedule better, so the model uses throughput-side values and
-# PARITY.md quotes the per-kernel fit residuals). 3-D grids index the
-# streaming axis outside the vector register, so streaming shifts
-# there are address arithmetic (free); their sublane axis is the mid
-# axis. 'rotate' rows are the narrow-lane (<=256) in-register mode.
-# 'roll' is the round-3 roll-shift value mode (full-slab-extent values,
-# every shifted load an in-register rotate): its cost is DISTANCE-
-# dependent — a cross-vreg rotate by a vreg-aligned amount is a
-# renumbering, a misaligned one is a two-slice concat
-# (experiments/exp24_stage_tax.py: sublane ~4.5-5.3 at d % 8 != 0 vs
-# ~2.1 aligned; lane ~6-7 at d % 128 != 0 vs ~2 at vreg multiples).
-SHIFT_COST = {
-    'slice': {'free': 0.0, 'sublane_aligned': 3.0, 'sublane': 4.5,
-              'lane': 4.5},
-    'rotate': {'free': 0.0, 'sublane_aligned': 1.0, 'sublane': 1.5,
-               'lane': 1.5},
-    'roll': {'free': 0.0, 'sublane_aligned': 2.1, 'sublane': 5.0,
-             'lane_aligned': 2.0, 'lane': 6.5},
-}
-# per-element costs of non-trivial arithmetic (same units). exp45
-# measured serial-chain prices on v5e, normalized to add=1 via the
-# measured fma-pair chain (4.4 hw-slots per mul+add): float divide
-# 11.3 hw-slots -> ~5.1 units, rsqrt 9.35 / sqrt 10.0 -> ~4.3 units
-# (rsqrt is CHEAPER than divide on TPU; the old 8.0 overpriced it ~2x
-# and div's 3.0 underpriced). Mosaic does NOT fuse 1/sqrt -> rsqrt
-# (18.4 slots unfused), which is why semantics.py's fast_rsqrt rewrite
-# exists.
-OP_COST = {'add': 1.0, 'mul': 1.0, 'minmax': 1.0, 'other': 1.0,
-           'div': 5.0, 'transcendental': 4.3}
-# stage boundary: result wrap/copy into its live value/slab
-STAGE_COST = 1.0
-
-# -- ceiling side (upper bound by construction) -------------------------------
-# The HBM spec (819 GB/s on v5e) is conservative: the bench's unique-
-# traffic accounting has measured blur at 968 GB/s effective (1.18x)
-# and heat3d at 1.118x roofline on hardware (BENCH_r03), so a ceiling
-# quoted against the spec must allow the measured uplift.
-HBM_SPEC_UPLIFT = 1.2
-# optimistic per-op costs: div's exact f32 fast path and 2^k shift
-# rewrite can reach ~1 slot; transcendentals priced at exp45's measured
-# MARGINAL cost inside an ILP-rich stage (+2.7 hw-slots for the
-# g-stage rsqrt at fma-pair ~2 hw-slots -> ~1.4 units; the old 4.0 was
-# ABOVE the measured best, i.e. not an upper bound)
-CEIL_OP_COST = {'add': 1.0, 'mul': 1.0, 'minmax': 1.0, 'other': 1.0,
-                'div': 1.0, 'transcendental': 1.4}
-# optimistic shift pricing: the cheapest measured lowering of each
-# class across ALL modes (rotate-mode in-register lane/sublane moves),
-# since a config is free to pick whichever mode is cheapest — floored
-# at 1.3 for the unaligned classes: contrast (107 shifts, cr-cost=tpu)
-# measured 0.1131 roofline against the 0.1104 ceiling the 1.5 floor
-# produced, i.e. amortized CR shift+accumulate chains achieve ~1.3
-# slots/shift effective, and an upper bound may not price above the
-# measured best (BENCH 2026-08-20)
-CEIL_SHIFT_COST = {
-    'free': 0.0,
-    'sublane_aligned': min(c.get('sublane_aligned', 99.0)
-                           for c in SHIFT_COST.values()),
-    'sublane': min([c['sublane'] for c in SHIFT_COST.values()] + [1.3]),
-    'lane_aligned': min(c.get('lane_aligned', c['lane'])
-                        for c in SHIFT_COST.values()),
-    'lane': min([c['lane'] for c in SHIFT_COST.values()] + [1.3]),
-}
-# fixed cost per Pallas grid step (v5e, measured): input-DMA grant
-# chain + scalar bookkeeping at every grid entry. exp27 isolates it
-# synthetically and exp23/exp19 confirm it as the wall that caps
-# many-step configs (256^3 jacobi3d: 64+ steps x ~2us on a ~280us
-# roofline). stream_loop mode folds the grid into one invocation to
-# attack it.
-GRID_STEP_FIXED_S = 2e-6
-
-
-def device_params(device=None) -> Tuple[str, float, float]:
-  kind = ''
-  if device is not None:
-    kind = getattr(device, 'device_kind', str(device)).lower()
-  for sub, bw, flops in DEVICE_TABLE:
-    if sub in kind:
-      return kind, bw, flops
-  return (kind or DEFAULT_DEVICE[0], DEFAULT_DEVICE[1], DEFAULT_DEVICE[2])
-
 
 def _count_ops_into(counts: Dict[str, float], *nodes) -> None:
-  """Accumulate arithmetic op counts of expression trees (shared by
-  the whole-program roofline and the per-stage op model — one
-  classification, no drift)."""
+  """Accumulate arithmetic op counts of expression trees."""
 
   def visit(node, _):
     if isinstance(node, ir.AddSub):
@@ -153,269 +55,64 @@ def _zero_counts() -> Dict[str, float]:
 
 
 def count_ops(stencil) -> Dict[str, float]:
-  """Per-output-cell operation counts summed over all stages."""
+  """Per-output-cell operation counts of the declared statements."""
   counts = _zero_counts()
   for stmt in stencil.local_stmts + stencil.output_stmts:
     _count_ops_into(counts, stmt.expr, *stmt.let)
   return counts
 
 
-def _stage_op_counts(tensor) -> Dict[str, float]:
-  """Arithmetic op counts of one stage's expression."""
+def op_counts(stencil) -> Dict[str, float]:
+  """Per-cell operation counts over the executed stage schedule: every
+  ``iterate`` sweep and every computation-reuse variable included."""
   counts = _zero_counts()
-  _count_ops_into(counts, tensor.expr, *tensor.lets)
+  for stage in make_plan(stencil, 'full').stages:
+    _count_ops_into(counts, stage.tensor.expr, *stage.tensor.lets)
   return counts
 
 
-def op_model(stencil, plan, lanes: Optional[int] = None,
-             mode: str = 'auto') -> Dict[str, float]:
-  """Measured VPU op model over the POST-unroll stage schedule.
-
-  Sums, per output cell, the arithmetic ops of every stage (iterate
-  sweeps and CR variables included) plus the measured shifted-load tax
-  of every distinct (parent, offset) access — the quantity the round-1
-  model missed (VERDICT.md "What's weak" #1). Units: equivalent 32-bit
-  element-ops; divide by the device's peak VPU rate for a time bound.
-
-  ``mode`` picks the shift lowering being modeled ('slice', 'rotate',
-  'roll', or 'auto'). 'auto' evaluates every mode the executor could
-  pick for this shape and returns the cheapest — mirroring the bench's
-  measured probe, which runs the candidates and keeps the winner.
-  """
-  dim = plan.dim
-  if mode == 'auto':
-    candidates = ['slice', 'roll']
-    if lanes is not None and lanes <= 256:
-      candidates.append('rotate')
-    best = min((op_model(stencil, plan, lanes, m) for m in candidates),
-               key=lambda r: r['slots_per_cell'])
-    return best
-  if mode == 'ceiling':
-    # optimistic-by-construction pricing (see ceiling_frac)
-    costs, op_cost, stage_cost = CEIL_SHIFT_COST, CEIL_OP_COST, 0.0
-  else:
-    costs, op_cost, stage_cost = SHIFT_COST[mode], OP_COST, STAGE_COST
-  slots = 0.0
-  arith = {'add': 0.0, 'mul': 0.0, 'div': 0.0, 'minmax': 0.0,
-           'transcendental': 0.0, 'other': 0.0}
-  shifts = dict.fromkeys(costs, 0)
-  fma_fusable = 0.0
-  # Roll-mode values are full-slab-extent, so a duplicate (tensor,
-  # offset) load in a LATER stage is the byte-identical rotate — and
-  # exp46 measured that Mosaic CSEs those duplicates itself (a Python-
-  # level memo was timing-neutral on denoise2d/xcorr where duplicates
-  # exist). The model therefore dedups globally in roll mode (and in
-  # the ceiling, which prices the cheapest lowering). Slice/rotate
-  # loads are cut to the consumer stage's own region, so cross-stage
-  # duplicates are not byte-identical and dedup stays per-stage.
-  global_seen = set() if mode in ('roll', 'ceiling') else None
-  for stage in plan.stages:
-    counts = _stage_op_counts(stage.tensor)
-    for key, cnt in counts.items():
-      arith[key] += cnt
-    # float mul+add pairs contract into single VPU FMAs (Mosaic does
-    # this routinely — docs/perf-log.md "Numerical findings" measured
-    # the 1-ulp contraction difference), so an upper bound must price
-    # a contractible pair as ONE slot. exp41 forced this term:
-    # denoise3d's peel+b16 config measured 0.737 against a 0.696
-    # ceiling that priced its 22 muls and 31 adds separately. In
-    # CEILING mode integer pairs contract too: contrast (all-int,
-    # cr-cost=tpu) measured 0.1131 against a 0.1104 ceiling that
-    # priced its int muls and adds separately — the hardware
-    # evidently issues int multiply-accumulate at pair rate, and an
-    # upper bound may not assume otherwise. The expected-cost model
-    # keeps the float-only guarantee.
-    if (getattr(stage.tensor.dtype, 'is_float', False)
-        or mode == 'ceiling'):
-      fma_fusable += min(counts['add'], counts['mul'])
-    st_idx = stage.tensor.st_idx
-    seen = set() if global_seen is None else global_seen
-    for parent, refs in stage.tensor.ld_refs.items():
-      if parent in stencil.param_names:
-        continue
-      for ref in refs:
-        delta = tuple(r - s for r, s in zip(ref.idx, st_idx))
-        if (parent, delta) in seen:
-          continue
-        seen.add((parent, delta))
-        # DSL dim d <-> array axis dim-1-d; lanes = DSL dim 0,
-        # sublanes = DSL dim 1, majors free
-        if delta[0]:
-          if 'lane_aligned' in costs and delta[0] % 128 == 0:
-            shifts['lane_aligned'] += 1
-          else:
-            shifts['lane'] += 1
-        if dim >= 2 and delta[1]:
-          if delta[1] % 8 == 0:
-            shifts['sublane_aligned'] += 1
-          else:
-            shifts['sublane'] += 1
-        if dim >= 3 and any(delta[2:]):
-          shifts['free'] += 1
-    slots += stage_cost
-  for key, cnt in arith.items():
-    slots += op_cost[key] * cnt
-  if mode == 'ceiling':
-    slots -= fma_fusable  # each contracted float mul+add pair: 1 slot
-  for key, cnt in shifts.items():
-    slots += costs[key] * cnt
-  return {'slots_per_cell': slots, 'arith': arith, 'shifts': shifts,
-          'lane_mode': mode}
-
-
-def ceiling_frac(stencil, shape: Tuple[int, ...], device=None,
-                 model_params: Optional[Dict[str, float]] = None
-                 ) -> float:
-  """UPPER bound on the achievable HBM-roofline fraction.
-
-  The predictor side of this module (op_model with measured per-mode
-  costs) estimates what a config WILL measure; this is the other role
-  the reference's model plays — a cap that measurements can't
-  legitimately exceed (model/xilinx.py:131-144 is an upper bound by
-  construction). Built from optimistic-by-construction components:
-  the measured HBM-spec uplift (the 819 GB/s v5e spec is conservative
-  — blur measured 968 GB/s effective), per-op costs at their
-  fast-path floor, every shift priced at its cheapest measured
-  lowering across all modes, and zero stage-boundary overhead.
-  tests/test_model_honesty.py asserts this dominates every recorded
-  bench fraction, so a stale model fails loudly instead of quoting
-  ceilings below measurements (round-3 VERDICT weak #3).
-  """
-  plan = make_plan(stencil, 'full')
-  kind, bw_gbps, vpu_gflops = device_params(device)
-  if model_params:
-    bw_gbps = float(model_params.get('hbm_gbps', bw_gbps))
-    vpu_gflops = float(model_params.get('vpu_gflops', vpu_gflops))
-  from soda_tpu.profiling import stream_bytes
-  in_bytes, out_bytes = stream_bytes(stencil, shape)
-  traffic = in_bytes + out_bytes
-  cells = float(np.prod(shape))
-  bw_time_spec = traffic / (bw_gbps * 1e9)  # frac's denominator
-  bw_time_true = traffic / (bw_gbps * HBM_SPEC_UPLIFT * 1e9)
-  model = op_model(stencil, plan, lanes=shape[-1], mode='ceiling')
-  compute_time = model['slots_per_cell'] * cells / (vpu_gflops * 1e9)
-  return bw_time_spec / max(bw_time_true, compute_time)
-
-
-def estimate(stencil, shape: Tuple[int, ...],
-             device=None,
-             model_params: Optional[Dict[str, float]] = None,
-             kernel_opts: Optional[Dict[str, object]] = None
+def estimate(stencil, shape: Tuple[int, ...], device=None,
+             model_params: Optional[Dict[str, float]] = None
              ) -> Dict[str, object]:
-  """Analytic estimate; ``model_params`` may override the device table
-  ({'hbm_gbps': .., 'vpu_gflops': ..} — the analog of the reference's
-  --model-file JSON with target_freq/dram_bandwidth,
-  model/xilinx.py:34-60). ``kernel_opts`` (the CLI's --kernel-opt
-  dict) pins the executor config the estimate models: block_rows,
-  mid_tile, stage_mode, compute_chunk, prefetch, stream_loop."""
-  plan = make_plan(stencil, 'full')
-  kind, bw_gbps, vpu_gflops = device_params(device)
+  """Roofline estimate of one application on ``device`` (a jax Device
+  or device_kind string, looked up in soda_tpu.profiling.PEAKS).
+
+  ``model_params`` replaces the table lookup ({'name': .., 'hbm_gbps':
+  .., 'gflops': ..} — the analog of the reference's --model-file JSON
+  with target_freq/dram_bandwidth, model/xilinx.py:34-60).
+  """
+  from soda_tpu.profiling import peak, stream_bytes
   if model_params:
-    bw_gbps = float(model_params.get('hbm_gbps', bw_gbps))
-    vpu_gflops = float(model_params.get('vpu_gflops', vpu_gflops))
-    kind = model_params.get('name', kind)
+    kind = model_params.get('name', 'model-file')
+    bw = float(model_params['hbm_gbps']) * 1e9
+    flops = float(model_params['gflops']) * 1e9
+  else:
+    kind = device if isinstance(device, str) else device.device_kind
+    p = peak(kind)
+    bw, flops = p.hbm_bytes_per_s, p.flops_per_s
+  plan = make_plan(stencil, 'full')
   cells = float(np.prod(shape))
-  # unique HBM traffic: ONE definition shared with the bench's
-  # measured-throughput denominator (soda_tpu.profiling.stream_bytes)
-  from soda_tpu.profiling import stream_bytes
   in_bytes, out_bytes = stream_bytes(stencil, shape)
   traffic = in_bytes + out_bytes
-  ops = count_ops(stencil)
-  flops_per_cell = sum(ops.values())
-  total_flops = flops_per_cell * cells
-
-  bw_time = traffic / (bw_gbps * 1e9)
-  model = op_model(stencil, plan, lanes=shape[-1])
-  compute_time = model['slots_per_cell'] * cells / (vpu_gflops * 1e9)
-  bound = 'memory' if bw_time >= compute_time else 'compute'
-  time_s = max(bw_time, compute_time)
-
-  ko = dict(kernel_opts or {})
-  dim = plan.dim
-  prefetch = int(ko.get('prefetch', 2))
-  # mirror the auto-dispatch's mid-tiling pick (3-D cross-sections
-  # over the VMEM budget stream as grid_m halo-overlapped mid tiles,
-  # MidTiledPallasExecutor): per-grid-step overhead scales with
-  # grid * grid_m, not the streaming grid alone
-  grid_m = 1
-  mid_tile = ko.get('mid_tile')
-  est_shape = shape
-  if dim == 3:
-    h, m, w_ = shape
-    mlo = pallas_kernel._pad_to(plan.halo_lo[1], pallas_kernel._ALIGN)
-    mhi = plan.halo_hi[1]
-    if mid_tile is None:
-      mid_tile = m
-      while mid_tile > 8:
-        ext = min(m, pallas_kernel._pad_to(mid_tile + mlo + mhi,
-                                           pallas_kernel._ALIGN))
-        if pallas_kernel.estimate_vmem(
-            plan, (h, ext, w_), 8, 'value',
-            prefetch=prefetch) <= pallas_kernel._VMEM_BUDGET:
-          break
-        mid_tile //= 2
-      mid_tile = max(8, mid_tile)
-    mt = pallas_kernel._pad_to(max(int(mid_tile), mlo, mhi + 1),
-                               pallas_kernel._ALIGN)
-    m_pad = pallas_kernel._pad_to(m, mt)
-    ext = pallas_kernel._pad_to(mt + mlo + mhi, pallas_kernel._ALIGN)
-    if ext < m_pad and mt < m_pad:
-      grid_m = m_pad // mt
-      est_shape = (h, ext, w_)
-  stage_mode = ko.get('stage_mode', 'vmem' if grid_m == 1 else 'value')
-  block_rows = int(ko.get('block_rows') or pallas_kernel.choose_block_rows(
-      plan, est_shape, stage_mode=stage_mode,
-      compute_chunk=ko.get('compute_chunk'), prefetch=prefetch))
-  # mirror the executor's slab geometry and VMEM model EXACTLY
-  # (axis-0 alignment is 8 for 2-D sublanes but 1 for 3-D plane
-  # strides, pallas_kernel._axis0_align; the working-set model is the
-  # same estimate_vmem that chose block_rows)
-  a0 = pallas_kernel._axis0_align(dim)
-  lo = pallas_kernel._pad_to(plan.halo_lo[dim - 1], a0)
-  slab = pallas_kernel._pad_to(block_rows + lo + plan.halo_hi[dim - 1],
-                               a0)
-  vmem = pallas_kernel.estimate_vmem(plan, est_shape, block_rows,
-                                     stage_mode,
-                                     ko.get('compute_chunk'), prefetch)
-
-  # dispatch-overhead model: the grid-stepped executor pays a fixed
-  # ~2us per Pallas grid step (GRID_STEP_FIXED_S); est_* folds it into
-  # the roofline bound, which is what the bench actually measures.
-  # ideal_* stays pure roofline (the reference's model is also
-  # dispatch-free, model/xilinx.py). stream_loop mode replaces the
-  # per-step dispatch with ONE invocation (the in-kernel loop's
-  # residual per-iteration cost is below the model's resolution).
-  grid_steps = -(-shape[0] // block_rows) * grid_m
-  dispatches = 1 if ko.get('stream_loop') else grid_steps
-  overhead_s = dispatches * GRID_STEP_FIXED_S
-  est_time_s = time_s + overhead_s
-
+  ops = op_counts(stencil)
+  ops_per_cell = float(sum(ops.values()))
+  memory_s = traffic / bw
+  compute_s = ops_per_cell * cells / flops
+  time_s = max(memory_s, compute_s)
   return {
       'device': kind,
-      'peak_hbm_gbps': bw_gbps,
-      'peak_vpu_gflops': vpu_gflops,
+      'peak_hbm_gbps': bw / 1e9,
+      'peak_gflops': flops / 1e9,
       'cells': cells,
       'hbm_bytes': traffic,
-      'arithmetic_intensity': total_flops / traffic,
       'ops_per_cell': ops,
-      'bound': bound,
-      'op_model': model,
-      'model_roofline_frac': round(min(1.0, bw_time / time_s), 4),
-      'ceiling_frac': round(ceiling_frac(stencil, shape, device,
-                                         model_params), 4),
-      'ideal_time_s': time_s,
-      'ideal_cells_per_s': cells * stencil.iterate / time_s,
-      'ideal_effective_gbps': traffic / time_s / 1e9,
-      'grid_steps': grid_steps,
-      'grid_m': grid_m,
-      'mid_tile': None if grid_m == 1 else int(mid_tile),
-      'grid_step_overhead_s': overhead_s,
-      'est_time_s': est_time_s,
-      'est_roofline_frac': round(min(1.0, bw_time / est_time_s), 4),
-      'block_rows': block_rows,
-      'slab_rows': slab,
-      'vmem_bytes': vmem,
-      'vmem_ok': vmem <= 16 * 1024 * 1024,
+      'flops_per_cell': ops_per_cell,
+      'arithmetic_intensity': ops_per_cell * cells / traffic,
+      'bound': 'memory' if memory_s >= compute_s else 'compute',
+      'memory_time_s': memory_s,
+      'compute_time_s': compute_s,
+      'roofline_time_s': time_s,
+      'roofline_cells_per_s': cells * stencil.iterate / time_s,
       'halo': {'lo': plan.halo_lo, 'hi': plan.halo_hi},
       'stages': len(plan.stages),
       'total_reuse_distance': getattr(stencil, 'total_reuse_distance', None),
@@ -423,7 +120,7 @@ def estimate(stencil, shape: Tuple[int, ...],
 
 
 def print_estimation(stencil, shape, file, device=None,
-                     model_params=None, kernel_opts=None) -> None:
-  json.dump(estimate(stencil, shape, device, model_params, kernel_opts),
+                     model_params=None) -> None:
+  json.dump(estimate(stencil, shape, device, model_params),
             file, indent=2, default=str)
   file.write('\n')

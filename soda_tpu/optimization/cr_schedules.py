@@ -54,40 +54,6 @@ def _neg(idx: Sequence[int]) -> Tuple[int, ...]:
   return tuple(-x for x in idx)
 
 
-_ROLL_COST = None  # lazy: model.estimate imports the backend stack
-
-
-def tpu_shift_price(offset: int, linearizer: Optional[Linearizer]) -> float:
-  """Measured VPU slots of ONE shifted read at linear ``offset``.
-
-  SURVEY §7.3's deferred hard part: the reference minimizes
-  (num_ops, FIFO reuse distance) (computation_reuse.py:573-624); on
-  TPU the second term is the in-register shift price, which exp24
-  measured varying ~3x with distance ALIGNMENT (roll mode: sublane
-  d%8==0 ~2.1 slots vs ~5.0 misaligned; lane d%128==0 ~2.0 vs ~6.5).
-  The table is model/estimate.SHIFT_COST['roll'] (single source,
-  imported lazily to break the module cycle). DSL dim 0 is the lane
-  axis, dim 1 the sublane axis (docs/data-layout.md); higher dims are
-  the streaming/major axes, shifted by address arithmetic (free).
-  """
-  global _ROLL_COST
-  if _ROLL_COST is None:
-    from soda_tpu.model.estimate import SHIFT_COST
-    _ROLL_COST = SHIFT_COST['roll']
-  if linearizer is None:
-    delta: Tuple[int, ...] = (offset,)
-  else:
-    delta = linearizer.delta(offset)
-  slots = 0.0
-  if delta[0]:
-    slots += (_ROLL_COST['lane_aligned'] if delta[0] % 128 == 0
-              else _ROLL_COST['lane'])
-  if len(delta) >= 2 and delta[1]:
-    slots += (_ROLL_COST['sublane_aligned'] if delta[1] % 8 == 0
-              else _ROLL_COST['sublane'])
-  return slots
-
-
 class CommSchedule:
   """One schedule node: ``left + shift(right, distance)``.
 
@@ -104,8 +70,7 @@ class CommSchedule:
   # computation_reuse.py:1707); left unset elsewhere so that
   # ``getattr(sched, 'base', default)`` falls through to the default.
   __slots__ = ('left', 'right', 'distance', 'base', '_norm', '_hash',
-               '_children', '_cost', '_dist', '_dep', '_uniq', '_nops',
-               '_offs', '_tpu')
+               '_children', '_cost', '_dist', '_dep', '_uniq', '_nops')
 
   def __init__(self, left: Payload, right: Payload, distance: int):
     self.left = left
@@ -119,8 +84,6 @@ class CommSchedule:
     self._dep = None
     self._uniq = None
     self._nops = None
-    self._offs = None
-    self._tpu = None
 
   # -- attrs -------------------------------------------------------------------
   def attrs_with_offset(self, offset: int = 0
@@ -241,10 +204,6 @@ class CommSchedule:
 
     dependers: Dict[int, Dict[int, None]] = {}
     dependees: Dict[int, Dict[int, Tuple[int, int]]] = {}
-    # full per-edge read-offset sets (the (lo, hi) pair above is all
-    # the distance LP needs; the TPU shift pricing needs every
-    # distinct offset — each is one shifted load in the lowered stage)
-    offs: Dict[int, Dict[int, Set[int]]] = {}
 
     def accesses(sched: CommSchedule, offset=None):
       vid = var_of.get(sched)
@@ -270,7 +229,6 @@ class CommSchedule:
         lohi = dependees.setdefault(dst, {}).get(src)
         dependees[dst][src] = (offset, offset) if lohi is None else \
             (min(lohi[0], offset), max(lohi[1], offset))
-        offs.setdefault(dst, {}).setdefault(src, set()).add(offset)
         if src not in done and table[src] not in todo:
           todo.append(table[src])
 
@@ -291,19 +249,14 @@ class CommSchedule:
           new = (mn + offset, mx + offset)
           dependees[dst][src_src] = new if old is None else \
               (min(old[0], new[0]), max(old[1], new[1]))
-          offs[dst].setdefault(src_src, set()).update(
-              o + offset for o in offs[src][src_src])
           dependers[src_src][dst] = None
           dependers[src_src].pop(src, None)
         del dependers[src]
         del dependees[dst][src]
-        del offs[dst][src]
         del dependees[src]
-        del offs[src]
         del table[src]
         changed = True
         break
-    self._offs = offs
     self._dep = (dependers, dependees, table)
     return self._dep
 
@@ -355,30 +308,6 @@ class CommSchedule:
         sum(res.x[n + index[s]] - res.x[index[s]] for s in dependers)))
     return self._dist
 
-  def tpu_slots(self, linearizer: Optional[Linearizer]) -> float:
-    """Measured-cost scalarization: VPU slots per cell of this tree.
-
-    One slot per unique operation (each is one vector op per cell)
-    plus the measured shift price of every distinct (consumer,
-    producer, offset) read in the post-inlining dependency graph —
-    the same distinct-(parent, delta) accounting the whole-kernel op
-    model charges (model/estimate.op_model). Offsets are in each
-    consumer's normalized frame (least leaf at 0, matching where the
-    lowering anchors reuse-variable stores), which prices the reuse
-    DISTANCES the schedule chose; the absolute window anchor adds a
-    schedule-independent bias that comparison ignores.
-    """
-    if self._tpu is None or self._tpu[0] != id(linearizer):
-      self._dependency()
-      slots = float(self.num_ops)
-      for srcs in self._offs.values():
-        for oset in srcs.values():
-          for off in oset:
-            if off:
-              slots += tpu_shift_price(off, linearizer)
-      self._tpu = (id(linearizer), slots)
-    return self._tpu[1]
-
   def to_json(self) -> Dict[str, Any]:
     j: Dict[str, Any] = {'distance': self.distance}
     for name in ('left', 'right'):
@@ -411,10 +340,7 @@ def idempotent_window_schedule(
   schedulers are bound to log2(n) + popcount(n) - 1 ops — the DAC'20
   formulation (reference computation_reuse.py) schedules sums, where
   covers must partition the window. Sums keep that bound; only bare
-  min/max windows (identical aattrs) take this path. The large
-  power-of-two distances are also what the TPU executors shift
-  cheapest (an 8-aligned sublane roll is a vreg renumber,
-  experiments/exp24_stage_tax.py).
+  min/max windows (identical aattrs) take this path.
 
   Returns None unless ``rattrs`` (sorted) is an arithmetic progression
   of at least 4 taps.
@@ -448,36 +374,18 @@ def linear_schedule(operands: Sequence[Tuple[int, Payload]]) -> CommSchedule:
 class ScheduleBase:
   """Common operand container for all schedulers.
 
-  ``cost_mode`` selects the comparison objective:
-    'ops'  the reference tuple (num_ops, total reuse distance)
-           (computation_reuse.py:573-624) — the default, interface-
-           preserving ordering;
-    'tpu'  measured-slot scalarization (CommSchedule.tpu_slots): ops
-           cost ~1 VPU slot each while a misaligned shift costs up to
-           6.5 measured slots, so schedules with equal op counts order
-           by their shift alignment and a +1-op schedule may win when
-           it buys a cheaper shift set; the reference tuple remains
-           the tie-break.
+  Candidates compare by the reference tuple (num_ops, total reuse
+  distance) (computation_reuse.py:573-624), ``CommSchedule.cost``.
   """
 
   def __init__(self, rattrs: Sequence[int],
                aattrs: Optional[Sequence[Payload]] = None,
                linearizer: Optional[Linearizer] = None,
-               cache: Optional[Dict] = None,
-               cost_mode: str = 'ops'):
+               cache: Optional[Dict] = None):
     self.rattrs = tuple(rattrs)
     self.aattrs = None if aattrs is None else tuple(aattrs)
     self.linearizer = linearizer
     self.cache = cache
-    if cost_mode not in ('ops', 'tpu'):
-      raise utils.InputError('unknown cr-cost mode: %s' % cost_mode)
-    self.cost_mode = cost_mode
-
-  def schedule_key(self, sched: CommSchedule):
-    """Comparison key of a candidate under the active cost model."""
-    if self.cost_mode == 'tpu':
-      return (round(sched.tpu_slots(self.linearizer), 6),) + sched.cost
-    return sched.cost
 
   def __len__(self):
     return len(self.rattrs)
@@ -556,19 +464,13 @@ class CommSchedules(ScheduleBase):
   reorder = True
   skip = True
 
-  def __init__(self, rattrs, aattrs=None, linearizer=None, cache=None,
-               cost_mode='ops'):
-    super().__init__(rattrs, aattrs, linearizer, cache, cost_mode)
+  def __init__(self, rattrs, aattrs=None, linearizer=None, cache=None):
+    super().__init__(rattrs, aattrs, linearizer, cache)
     self._memo: Dict = cache if cache is not None else {}
     self._deadline = None
     self.stat = {'cache_hit': 0, 'cache_miss': 0, 'schedules': 0}
     self.result_mode: Optional[str] = None
     self.result_source: Optional[str] = None
-    # under measured-slot costing a schedule with MORE ops can still
-    # win (+1 op that replaces a ~6.5-slot misaligned shift with a
-    # ~2-slot aligned one nets ~3.5 slots), so the num_ops
-    # branch-and-bound must keep a slack margin above the incumbent
-    self.bound_slack = 2 if cost_mode == 'tpu' else 0
 
   @classmethod
   def set_optimizations(cls, opts) -> None:
@@ -688,7 +590,7 @@ class CommSchedules(ScheduleBase):
                                       for r, a in left_ops)))
         for l in lefts:
           l_cost = 1 + (l.num_ops if isinstance(l, CommSchedule) else 0)
-          if self.skip and l_cost > sub.bound + self.bound_slack:
+          if self.skip and l_cost > sub.bound:
             continue
           rights = ([right_ops[0][1]] if len(right_ops) == 1 else
                     self._iter_sub(tuple((r - r_origin, a)
@@ -696,7 +598,7 @@ class CommSchedules(ScheduleBase):
           for r in rights:
             r_cost = 1 + (r.num_ops if isinstance(r, CommSchedule)
                           else 0)
-            if self.skip and r_cost > sub.bound + self.bound_slack:
+            if self.skip and r_cost > sub.bound:
               continue
             sched = CommSchedule(l, r, r_origin - l_origin)
             self.stat['schedules'] += 1
@@ -722,9 +624,9 @@ class CommSchedules(ScheduleBase):
     best_key = None
     self.result_mode, self.result_source = 'exact', 'search'
     if len(operands) > self.seed_threshold:
-      best = GreedySchedules(self.rattrs, self.aattrs, self.linearizer,
-                             cost_mode=self.cost_mode).best
-      best_key = self.schedule_key(best)
+      best = GreedySchedules(self.rattrs, self.aattrs,
+                             self.linearizer).best
+      best_key = best.cost
       self.result_source = 'greedy-seed'
     self._deadline = time.monotonic() + self.timeout
     if best is not None and self.memoize and len(operands) >= 2:
@@ -740,7 +642,7 @@ class CommSchedules(ScheduleBase):
       root.bound = min(root.bound, best.num_ops)
     try:
       for sched in self._iter_sub(operands):
-        key = self.schedule_key(sched)
+        key = sched.cost
         if best is None or key < best_key:
           best, best_key = sched, key
           self.result_source = 'search'
@@ -771,8 +673,7 @@ class GreedySchedules(ScheduleBase):
   num_pruned = 5
 
   def __lt__(self, other: 'GreedySchedules') -> bool:
-    return (self.schedule_key(self.comparison_key) <
-            other.schedule_key(other.comparison_key))
+    return self.comparison_key.cost < other.comparison_key.cost
 
   @cached_property
   def comparison_key(self) -> CommSchedule:
@@ -849,18 +750,7 @@ class GreedySchedules(ScheduleBase):
     than two disjoint pairs."""
     kept = collections.OrderedDict(enumerate(self))
     taken: Set[int] = set()
-    if self.cost_mode == 'tpu':
-      # among equally-reusable operations, fold the cheap-shift ones
-      # first: their distances survive into the lowered kernel as
-      # in-register rotates, and 8-aligned sublane / vreg-multiple
-      # lane distances cost ~3x less (tpu_shift_price)
-      order = [first] + sorted(
-          ops, key=lambda s: (-len(ops[s]),
-                              tpu_shift_price(s.distance, self.linearizer),
-                              s.distance))
-    else:
-      order = [first] + sorted(ops,
-                               key=lambda s: (-len(ops[s]), s.distance))
+    order = [first] + sorted(ops, key=lambda s: (-len(ops[s]), s.distance))
     for op in order:
       free = [(i, j) for i, j in ops[op]
               if i not in taken and j not in taken]
@@ -871,8 +761,7 @@ class GreedySchedules(ScheduleBase):
         del kept[j]
         taken.update((i, j))
     rattrs, aattrs = zip(*kept.values())
-    return GreedySchedules(rattrs, aattrs, self.linearizer,
-                           cost_mode=self.cost_mode)
+    return GreedySchedules(rattrs, aattrs, self.linearizer)
 
   def _axis_aligned(self, distance: int, dim: int) -> bool:
     """True iff two points ``distance`` apart differ in exactly
@@ -915,10 +804,10 @@ class GreedySchedules(ScheduleBase):
   def best(self) -> CommSchedule:
     generator = self.generator
     best = next(generator)
-    best_key = self.schedule_key(best)
+    best_key = best.cost
     deadline = time.monotonic() + self.timeout
     for schedule in generator:
-      key = self.schedule_key(schedule)
+      key = schedule.cost
       if key < best_key:
         best, best_key = schedule, key
       if time.monotonic() > deadline:
@@ -1004,7 +893,7 @@ class GloreSchedules(ScheduleBase):
         candidate = new_operands[0][1]
       else:
         candidate = linear_schedule(new_operands)
-      if self.schedule_key(candidate) < self.schedule_key(best):
+      if candidate.cost < best.cost:
         best = candidate
     return best
 
@@ -1020,9 +909,8 @@ class ExternalSchedules(ScheduleBase):
 
   BINARIES = ('soda-tpu-cr', 'soda-cr')
 
-  def __init__(self, rattrs, aattrs=None, linearizer=None, cache=None,
-               cost_mode='ops'):
-    super().__init__(rattrs, aattrs, linearizer, cache, cost_mode)
+  def __init__(self, rattrs, aattrs=None, linearizer=None, cache=None):
+    super().__init__(rattrs, aattrs, linearizer, cache)
     binary = find_external_cr()
     if binary is None:
       raise utils.InputError(
@@ -1037,33 +925,12 @@ class ExternalSchedules(ScheduleBase):
         'aattrs': list(self.aattrs or [1] * len(self.rattrs)),
     }
     n = len(self.rattrs)
-    if self.linearizer is not None and (n >= 32 or self.cost_mode == 'tpu'):
+    if self.linearizer is not None and n >= 32:
       attrs['linearizer'] = {
           'maxs': list(self.linearizer.maxs),
           'mins': list(self.linearizer.mins),
           'sizes': list(self.linearizer.sizes),
       }
-    if self.cost_mode == 'tpu':
-      if os.path.basename(self.cmd[0]).startswith('soda-tpu-cr'):
-        # extend the protocol with the measured shift-price table so
-        # the native search orders candidates exactly like the
-        # in-process schedulers (tpu_shift_price); prices are sent
-        # rather than baked into the binary so the two cannot drift
-        from soda_tpu.model.estimate import SHIFT_COST
-        roll = SHIFT_COST['roll']
-        attrs['cost_model'] = {
-            'mode': 'tpu',
-            'lane': roll['lane'],
-            'lane_aligned': roll['lane_aligned'],
-            'sublane': roll['sublane'],
-            'sublane_aligned': roll['sublane_aligned'],
-        }
-      else:
-        # the reference's soda-cr predates the key and exits on
-        # unknown input — run it with its native (ops) objective
-        _logger.warning('external binary %s does not speak the tpu '
-                        'cost model; scheduling with cost=ops',
-                        self.cmd[0])
     attrs['num_pruned'] = (64 if n < 32 else 4 if n < 64 else
                            3 if n < 128 else 2 if n < 256 else 1)
     result = json.loads(
@@ -1172,14 +1039,9 @@ class Expression:
   @cached_property
   def best_schedule(self) -> Optional[CommSchedule]:
     method = 'built-in'
-    cost_mode = 'ops'
     if self.stencil is not None:
       method = self.stencil.optimizations.get('computation-reuse',
                                               'built-in')
-      # 'cr-cost': 'tpu' re-weights the schedule objective with the
-      # measured per-shift prices (SURVEY §7.3: keep the reference's
-      # (ops, distance) interface, re-weight the second term for TPU)
-      cost_mode = self.stencil.optimizations.get('cr-cost', 'ops')
     if method in ('yes', 'built-in'):
       external = find_external_cr()
       if external is not None:
@@ -1206,8 +1068,7 @@ class Expression:
       chain = idempotent_window_schedule(self.rattrs)
       if chain is not None and chain.num_ops < len(self.rattrs) - 1:
         return chain
-    schedule = cls(self.rattrs, self.aattrs, self.linearizer,
-                   cost_mode=cost_mode).best
+    schedule = cls(self.rattrs, self.aattrs, self.linearizer).best
     if schedule is None or schedule.num_ops >= len(self.rattrs) - 1:
       return None  # no reuse found; leave the expression alone
     return schedule

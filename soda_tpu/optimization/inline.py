@@ -5,8 +5,8 @@ Same capabilities as the reference's src/soda/optimization/inline.py:
 ``inline2`` folds locals consumed by exactly one statement (at any
 number of offsets) when the producer itself loads a single ref;
 ``rebalance`` splits float reductions wider than a threshold into
-chained local statements so no single fused expression overwhelms
-XLA/Mosaic scheduling.
+chained local statements so no single fused expression grows without
+bound.
 
 Structured here as a fixpoint over the statement list: each round
 recomputes the load-site table, picks an innermost eligible producer
@@ -158,12 +158,11 @@ def inline2(stencil):
 
 # Maximum reduction width before splitting. The reference splits FLOAT
 # reductions at 32 to keep HLS codegen tractable (inline.py:170-172);
-# on TPU the binding constraint is Mosaic instead — arithmetic folds
-# wider than ~12 operands over shifted value slices crash the compiler
-# (experiments/exp6_crashes.py) and force the slower named-slab path —
-# so the same pass runs with a TPU-tuned threshold for EVERY element
-# type. Integer splits are exact: partial sums compute at the promoted
-# width either way, and the store wrap commutes with reassociation.
+# here every element type splits at 12. That bound is not tuned for
+# XLA: whether splitting helps or hurts its fusion on a GPU is an open
+# benchmark question (ROADMAP.md, Speed). Integer splits are exact:
+# partial sums compute at the promoted width either way, and the store
+# wrap commutes with reassociation.
 REBALANCE_THRESHOLD = 12
 REBALANCE_THRESHOLDS = {Type('float'): REBALANCE_THRESHOLD}  # legacy alias
 

@@ -13,9 +13,8 @@ shifts.
 Exactness: intermediates are stored at the C-promoted width, so the
 rewritten sums are plain reassociations of the original promoted-width
 arithmetic — congruent mod 2^32 by ring identities, hence bit-exact
-through the final store wrap (restricted to integer stages; the wrap
-sinking pass in soda_tpu.optimization.ranges then elides any wrap
-cost the new stage would add). No reference counterpart (the
+through the final store wrap (restricted to integer stages). No
+reference counterpart (the
 reference's FPGA line buffers make diagonal taps free, so it never
 needs this); closest relative is its GLORE scheduler's axis grouping
 (computation_reuse.py:1523-1689).

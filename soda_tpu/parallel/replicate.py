@@ -3,13 +3,13 @@
 The reference's ``replication factor`` duplicates the whole dataflow
 pipeline so R tiles stream concurrently (sodac.py:163-171,
 core.py:565-614 — throughput scaling when one pipeline cannot use the
-memory interface alone). The TPU analog is batching: vmap the fused
-kernel over a leading batch axis, so R independent grids ride one
-kernel launch — the win is amortized dispatch and grid overhead for
-small grids, exactly the regime the reference replicates in.
+memory interface alone). Here that is batching: vmap the executor over
+a leading batch axis, so R independent grids ride one launch — the win
+is amortized dispatch for small grids, exactly the regime the
+reference replicates in.
 
-Cross-CHIP replication is just data parallelism: shard the batch axis
-over the mesh (``mesh_axis``).
+Cross-device replication is just data parallelism: shard the batch axis
+over the first axis of a mesh.
 """
 
 from __future__ import annotations
@@ -25,18 +25,18 @@ from soda_tpu.backend import semantics
 class ReplicatedExecutor:
   """Run ``replication_factor`` independent grids per call.
 
-  Inputs/outputs carry a leading batch axis of that extent. The inner
-  executor is the ordinary fused Pallas kernel (or XLA fallback),
-  vmapped over the batch; with a mesh, the batch axis is sharded
-  across devices (each device streams its own grids).
+  Inputs/outputs carry a leading batch axis of that extent. An
+  ``XlaExecutor`` (built with ``kwargs``, e.g. ``cluster``) is vmapped
+  over the batch; with a mesh, the batch axis is sharded across devices
+  (each device runs its own grids).
   """
 
   def __init__(self, stencil, shape: Tuple[int, ...],
                replication_factor: Optional[int] = None,
-               backend: str = 'auto', mesh=None, **kwargs):
+               mesh=None, **kwargs):
     import jax
     import jax.numpy as jnp
-    from soda_tpu.backend import get_executor
+    from soda_tpu.backend.xla import XlaExecutor
 
     self.stencil = stencil
     self.shape = tuple(shape)
@@ -45,31 +45,14 @@ class ReplicatedExecutor:
     if factor < 1:
       raise utils.InputError('replication factor must be >= 1')
     self.replication_factor = factor
-    inner = get_executor(stencil, self.shape, backend, **kwargs)
+    inner = XlaExecutor(stencil, self.shape, **kwargs)
     self.inner = inner
     self.mesh = mesh
 
     n_in = len(stencil.input_names)
     n_par = len(stencil.param_names)
-    # params are shared across replicas: map only the input axes.
-    # vmap over a COMPILED Pallas kernel does not lower on TPU (the
-    # manual-DMA HBM input specs reject batched index maps), so the
-    # fused-kernel inner maps sequentially instead — still R grids per
-    # single host dispatch, which is the documented win for small
-    # grids; interpret-mode and XLA inners batch via vmap
-    from jax import lax
-    compiled_pallas = not getattr(inner, 'interpret', True)
-    if compiled_pallas:
-      def batched(*args):
-        ins, pars = args[:n_in], args[n_in:]
-
-        def body(xs):
-          return inner.fn(*xs, *pars)
-
-        return lax.map(body, tuple(ins))
-    else:
-      batched = jax.vmap(lambda *args: inner.fn(*args),
-                         in_axes=(0,) * n_in + (None,) * n_par)
+    # params are shared across replicas: map only the input axes
+    batched = jax.vmap(inner.fn, in_axes=(0,) * n_in + (None,) * n_par)
     if mesh is not None:
       from jax.sharding import NamedSharding, PartitionSpec as P
       axis = mesh.axis_names[0]

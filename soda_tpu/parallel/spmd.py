@@ -1,13 +1,13 @@
-"""Multi-chip stencil execution: mesh sharding + ICI halo exchange.
+"""Multi-device stencil execution: mesh sharding + halo exchange.
 
-The TPU-native replacement for the reference's multi-DRAM-bank data
-partitioning and host-side halo-overlapped tiling
-(/root/reference/docs/data-layout.md:62-255, codegen/xilinx/host.py:641-701):
-the grid is sharded over a 1-D or 2-D device mesh via ``jax.shard_map``
-(streaming axis, and optionally the next array axis); each step
-exchanges halo slabs with mesh neighbors over ICI using
-``lax.ppermute`` and runs the local stencil pipeline on its extended
-shard. Halo width is the OVERALL stencil reach (transitive
+The replacement for the reference's multi-DRAM-bank data partitioning
+and host-side halo-overlapped tiling (reference docs/data-layout.md:62-255,
+codegen/xilinx/host.py:641-701): the grid is sharded over a 1-D or 2-D
+device mesh via ``jax.shard_map`` (streaming axis, and optionally the
+next array axis); each step exchanges halo slabs with mesh neighbors
+using ``lax.ppermute`` (collective permutes that XLA hands to the
+device interconnect) and runs the local stencil pipeline on its
+extended shard. Halo width is the OVERALL stencil reach (transitive
 input->output), so multi-stage and iterate>1 kernels exchange once per
 step, not once per stage. The exchange is two-phase (axis 0, then
 axis 1 over the already-extended shard), which transports corner halos
@@ -19,19 +19,6 @@ border region — identical semantics to the single-chip executors.
 Extents that do not divide the mesh are padded to a shard multiple and
 cropped back; ``border: preserve`` is applied inside the shard_map with
 the TRUE global boundary derived from each shard's mesh position.
-
-Multi-slice (DCN) layout: pass ``dim_axes=[('slice', 'x')]`` over a
-``Mesh(devices.reshape(S, C), ('slice', 'x'))`` to shard the streaming
-axis over S slices of C chips. The halo ppermute runs over the
-flattened ('slice', 'x') ring, so of its S*C - 1 neighbor pairs only
-the S - 1 slice-edge pairs cross DCN — per-step DCN traffic is
-halo_bytes x (S - 1) x 2 directions, amortized over C chips of compute
-per slice. Latency model: a step is compute(local) +
-max(ICI halo, DCN halo); with DCN ~25 GB/s per host and halo slabs of
-h rows x row_bytes, slices stop paying extra once
-C x compute_per_chip > halo_bytes / 25 GB/s — the framework keeps the
-code path identical and leaves routing to XLA's topology-aware
-collectives (SURVEY 5.8).
 """
 
 from __future__ import annotations
@@ -45,64 +32,24 @@ from soda_tpu.backend import semantics
 from soda_tpu.backend.plan import make_plan
 
 
-def _axis_groups(mesh, dim_axes, utils_mod):
-  """Normalize the array-axis -> mesh-axes mapping.
-
-  Default: mesh axis k shards array axis k. An entry may instead be a
-  TUPLE of mesh axis names sharding one array axis hierarchically,
-  outer-to-inner — the multi-slice layout: ``dim_axes=[('slice', 'x')]``
-  shards the streaming axis over slices x chips-per-slice, where the
-  outer 'slice' hop crosses the DCN boundary (SURVEY 5.8: halo
-  exchange over ICI, DCN only across slices).
-  """
-  if dim_axes is None:
-    return tuple((name,) for name in mesh.axis_names)
-  groups = []
-  seen = set()
-  for entry in dim_axes:
-    group = (entry,) if isinstance(entry, str) else tuple(entry)
-    for name in group:
-      if name not in mesh.shape:
-        raise utils_mod.InputError('unknown mesh axis %r' % (name,))
-      if name in seen:
-        raise utils_mod.InputError('mesh axis %r used twice' % (name,))
-      seen.add(name)
-    groups.append(group)
-  return tuple(groups)
-
-
 class ShardedExecutor:
   """Run a stencil over a device mesh.
 
   Args:
     stencil: a core.Stencil.
     global_shape: full grid shape (array-axis order).
-    mesh: a jax.sharding.Mesh; by default mesh axis k shards array
-      axis k (1 or 2 sharded array axes). Default mesh: all devices
-      on one axis ('x').
-    dim_axes: optional explicit array-axis -> mesh-axes mapping; each
-      entry is a mesh axis name or a TUPLE of names sharding that
-      array axis hierarchically (see _axis_groups — the multi-slice
-      DCN layout is ``Mesh(devs.reshape(S, C), ('slice', 'x'))`` with
-      ``dim_axes=[('slice', 'x')]``: neighbor halo pairs inside a
-      slice ride ICI; the one edge pair per slice boundary rides DCN,
-      so per-step DCN traffic is halo_bytes x (S-1), amortized over C
-      chips of compute per slice).
-    inner: 'xla' (shifted-slice stages, default) or 'pallas' (each
-      shard runs the fused Pallas kernel).
-    inner_opts: executor kwargs forwarded to the per-shard fused
-      Pallas kernel (inner='pallas'): block_rows, stage/shift modes,
-      transpose_lanes, stream_loop — the single-chip tuned config
-      applies per shard unchanged.
+    mesh: a jax.sharding.Mesh; mesh axis k shards array axis k (1 or
+      2 sharded array axes). Default mesh: all devices on one axis
+      ('x').
     overlap: 'off' (default) or 'on' — overlap the halo exchange with
       interior compute. 'on' issues the ppermutes FIRST, computes the
       halo-INDEPENDENT interior of the shard while they fly, then
       computes only the two edge bands from the received halos and
-      stitches (single sharded axis, inner='xla'). This is the TPU
-      analog of the reference's FIFO-depth ILP, whose whole point is
-      keeping communication pipelined under compute
+      stitches (single sharded axis). This is the analog of the
+      reference's FIFO-depth ILP, whose whole point is keeping
+      communication pipelined under compute
       (reference dataflow.py:94-176): the step latency model improves
-      from compute(local) + max(ICI halo, DCN halo) to
+      from compute(local) + halo latency to
       max(compute(interior), halo latency) + compute(edge bands) —
       the exchange disappears from the critical path whenever the
       interior (local_rows - halo rows of work) outlasts the wire,
@@ -113,10 +60,7 @@ class ShardedExecutor:
   """
 
   def __init__(self, stencil, global_shape: Tuple[int, ...],
-               mesh=None, inner: str = 'xla',
-               interpret: Optional[bool] = None,
-               dim_axes=None, inner_opts=None,
-               overlap: str = 'off'):
+               mesh=None, overlap: str = 'off'):
     import jax
     from jax import lax
     import jax.numpy as jnp
@@ -124,6 +68,7 @@ class ShardedExecutor:
 
     self.stencil = stencil
     self.shape = tuple(global_shape)
+    semantics.require_f64_support(stencil)
     self.plan = make_plan(stencil, 'full')
     dim = self.plan.dim
     if mesh is None:
@@ -140,7 +85,7 @@ class ShardedExecutor:
       if n_banks > 1:
         devices = devices[:n_banks]
       mesh = Mesh(devices, ('x',))
-    axes = _axis_groups(mesh, dim_axes, utils)
+    axes = tuple(mesh.axis_names)
     if not 1 <= len(axes) <= 2:
       raise utils.InputError(
           'ShardedExecutor shards 1 or 2 array axes')
@@ -155,18 +100,16 @@ class ShardedExecutor:
     # Indivisible extents are padded up to a shard multiple (the analog
     # of the reference host's aligned tile sizes, host.py:641-701) and
     # outputs cropped back; padding lands beyond the original grid so
-    # valid cells never read it. A multi-name group's extent is the
-    # product of its mesh axes (flattened ring, outer axis major).
+    # valid cells never read it.
     mesh_shape = dict(mesh.shape)
     padded = list(self.shape)
     halos = []
-    for a, group in enumerate(axes):
-      n_dev = int(np.prod([mesh_shape[name] for name in group]))
-      padded[a] += (-self.shape[a]) % n_dev
+    for a, name in enumerate(axes):
+      padded[a] += (-self.shape[a]) % mesh_shape[name]
     self.padded_shape = tuple(padded)
     local = list(self.padded_shape)
-    for a, group in enumerate(axes):
-      n_dev = int(np.prod([mesh_shape[name] for name in group]))
+    for a, name in enumerate(axes):
+      n_dev = mesh_shape[name]
       local[a] = self.padded_shape[a] // n_dev
       d = dim - 1 - a
       lo, hi = self.plan.halo_lo[d], self.plan.halo_hi[d]
@@ -174,7 +117,7 @@ class ShardedExecutor:
         raise utils.InputError(
             'halo (%d, %d) exceeds local extent %d on axis %d' %
             (lo, hi, local[a], a))
-      halos.append((lo, hi, n_dev, group))
+      halos.append((lo, hi, n_dev, name))
 
     ext_shape = tuple(
         local[a] + (halos[a][0] + halos[a][1] if a < len(axes) else 0)
@@ -185,64 +128,20 @@ class ShardedExecutor:
     param_names = stencil.param_names
     output_names = stencil.output_names
 
-    if inner == 'auto':
-      from soda_tpu.backend import pallas_fits
-      inner = 'pallas' if pallas_fits(stencil, ext_shape) else 'xla'
-    if inner == 'pallas':
-      from soda_tpu.backend.pallas_kernel import PallasExecutor
-      # the inner per-shard preserve fix-up would be cropped away and
-      # redone with the global mask below — skip the wasted pass
-      # inner_opts: the tuned per-shard fused-kernel config (roll /
-      # hybrid / stream_loop bench seeds apply per shard unchanged).
-      # interpret/apply_preserve_border are owned by the sharded layer;
-      # a caller-supplied duplicate would be a TypeError, so drop it.
-      opts = dict(inner_opts or {})
-      opts.pop('apply_preserve_border', None)
-      opts.setdefault('interpret', interpret)
-      opts['apply_preserve_border'] = False
-      inner_exec = PallasExecutor(stencil, ext_shape, **opts)
+    from soda_tpu.backend import xla as xla_backend
 
-      def run_local(arrays: Dict, params: Dict) -> Dict:
-        args = [arrays[name] for name in input_names]
-        args += [params[name] for name in param_names]
-        outs = inner_exec._fn(*args)
-        return dict(zip(output_names, outs))
-    elif inner == 'grouped':
-      # per-stage-group kernels inside each shard (the reference's
-      # cluster granularity knob, cluster.py:51-202, composed with
-      # spatial sharding — one halo exchange per sweep-batch feeds a
-      # CHAIN of per-group kernels, not one fused one)
-      from soda_tpu.backend.grouped import GroupedPallasExecutor
-      gopts = dict(inner_opts or {})
-      gopts.pop('apply_preserve_border', None)
-      gopts.setdefault('interpret', interpret)
-      inner_exec = GroupedPallasExecutor(stencil, ext_shape,
-                                         apply_preserve_border=False,
-                                         **gopts)
-
-      def run_local(arrays: Dict, params: Dict) -> Dict:
-        args = [arrays[name] for name in input_names]
-        args += [params[name] for name in param_names]
-        outs = inner_exec._fn(*args)
-        return dict(zip(output_names, outs))
-    else:
-      from soda_tpu.backend import xla as xla_backend
-
-      def run_local(arrays: Dict, params: Dict) -> Dict:
-        # the overlap path calls on interior/edge-band extents, not the
-        # halo-extended shard — forward slices with the shape it is
-        # TOLD, so derive it from the actual arrays every time
-        shp = next(iter(arrays.values())).shape
-        return xla_backend.forward(stencil_ref, arrays, params,
-                                   tuple(shp), plan)
+    def run_local(arrays: Dict, params: Dict) -> Dict:
+      # the overlap path calls on interior/edge-band extents, not the
+      # halo-extended shard — forward slices with the shape it is
+      # TOLD, so derive it from the actual arrays every time
+      shp = next(iter(arrays.values())).shape
+      return xla_backend.forward(stencil_ref, arrays, params,
+                                 tuple(shp), plan)
 
     def exchange(array, axis_idx):
       """Extend ``array`` along axis ``axis_idx`` with neighbor halos
       (width = the plan-wide overall halo, identical for all inputs)."""
-      lo, hi, n_dev, group = halos[axis_idx]
-      # neighbor pairs over the group's flattened ring; for a
-      # multi-slice group the pairs that straddle a slice boundary are
-      # exactly the ones XLA routes over DCN
+      lo, hi, n_dev, axis_name = halos[axis_idx]
       fwd = [(i, i + 1) for i in range(n_dev - 1)]
       bwd = [(i + 1, i) for i in range(n_dev - 1)]
       parts = []
@@ -250,11 +149,11 @@ class ShardedExecutor:
       sl_hi = [slice(None)] * array.ndim
       if lo:
         sl_lo[axis_idx] = slice(-lo, None)
-        parts.append(lax.ppermute(array[tuple(sl_lo)], group, fwd))
+        parts.append(lax.ppermute(array[tuple(sl_lo)], axis_name, fwd))
       parts.append(array)
       if hi:
         sl_hi[axis_idx] = slice(0, hi)
-        parts.append(lax.ppermute(array[tuple(sl_hi)], group, bwd))
+        parts.append(lax.ppermute(array[tuple(sl_hi)], axis_name, bwd))
       if len(parts) == 1:
         return array
       return jnp.concatenate(parts, axis=axis_idx)
@@ -288,11 +187,8 @@ class ShardedExecutor:
 
     if overlap not in ('off', 'on'):
       raise utils.InputError("overlap must be 'off' or 'on'")
-    if overlap == 'on' and (len(axes) != 1 or inner != 'xla'):
-      raise utils.InputError(
-          'overlap applies to single-axis sharding with the xla inner '
-          '(edge bands are narrow dynamic shapes the fused Pallas '
-          'kernel is not compiled for)')
+    if overlap == 'on' and len(axes) != 1:
+      raise utils.InputError('overlap applies to single-axis sharding')
     if overlap == 'on' and halos[0][0] + halos[0][1] > local[0]:
       raise utils.InputError(
           'overlap needs local extent %d > total halo %d (edge bands '
@@ -303,14 +199,14 @@ class ShardedExecutor:
     def step_overlapped(locals_in: Dict, params: Dict):
       """Issue halo permutes, compute the interior while they fly,
       then the edge bands, and stitch. Outputs are local-extent."""
-      lo, hi, n_dev, group = halos[0]
+      lo, hi, n_dev, axis_name = halos[0]
       fwd = [(i, i + 1) for i in range(n_dev - 1)]
       bwd = [(i + 1, i) for i in range(n_dev - 1)]
       # 1. the sends: no downstream op before these in the graph
-      recv_lo = {name: lax.ppermute(arr[-lo:], group, fwd) if lo else None
-                 for name, arr in locals_in.items()}
-      recv_hi = {name: lax.ppermute(arr[:hi], group, bwd) if hi else None
-                 for name, arr in locals_in.items()}
+      recv_lo = {name: lax.ppermute(arr[-lo:], axis_name, fwd)
+                 for name, arr in locals_in.items()} if lo else None
+      recv_hi = {name: lax.ppermute(arr[:hi], axis_name, bwd)
+                 for name, arr in locals_in.items()} if hi else None
       # 2. interior: depends ONLY on the local shard, so XLA's
       # latency-hiding scheduler runs it between permute-start and
       # permute-done (structurally pinned by test_spmd.py)
@@ -361,9 +257,9 @@ class ShardedExecutor:
         if stencil_ref.preserve_border:
           # border: preserve — cells outside the global valid region
           # carry the paired input (reference untiling keeps borders,
-          # host.py:846-950); the inner executors' own per-shard
-          # fix-up is insufficient at shard seams, so it is redone
-          # here with the true global boundary
+          # host.py:846-950); a shard alone cannot tell its seams
+          # from the global boundary, so the mask comes from its mesh
+          # position
           paired = k if len(input_names) == n_outputs else 0
           base = semantics.wrap(jnp, locals_in[input_names[paired]],
                                 stencil_ref.symbol_table[name])
@@ -371,14 +267,12 @@ class ShardedExecutor:
         results.append(out)
       return tuple(results)
 
-    shard_spec = P(*axes)  # each entry a mesh-axis group
+    shard_spec = P(*axes)
     in_specs = tuple([shard_spec] * len(input_names) +
                      [P()] * len(param_names))
     out_specs = tuple([shard_spec] * len(output_names))
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, which the checker would otherwise reject
     sharded = jax.shard_map(step, mesh=mesh, in_specs=in_specs,
-                            out_specs=out_specs, check_vma=False)
+                            out_specs=out_specs)
     self._fn = jax.jit(sharded)
     self._jnp = jnp
 

@@ -8,7 +8,7 @@ reference value — the squared-form check of the generated self-test
 
 The reference defaults THRESHOLD to 1e-5, which assumes both sides
 compute with individually-rounded IEEE ops (its HLS float cores match
-its C++ host op for op). XLA and Mosaic contract mul+add into
+its C++ host op for op). XLA contracts mul+add into
 higher-precision FMAs (measured: plain ``jit(x*50 + y*-51)`` differs
 from NumPy by 1 ulp on CPU), so executor-vs-oracle divergence of a few
 hundred ulp on cancelling coefficient sums (contrast) is expected —
@@ -19,28 +19,25 @@ THRESHOLD=1e-4; kernels without heavy cancellation stay well inside
 
 import numpy as np
 
-THRESHOLD = 1e-4
+from soda_tpu import utils
 
-# Per-kernel overrides (matched against the comparison context prefix):
-# contrast's 17x17 table sums +-100-coefficient terms to ~5e3 magnitude
-# before cancelling; ONE FMA-contracted ulp of the running sum is
-# ~5e-4, so cells that cancel toward zero legitimately differ by that
-# much between XLA and the individually-rounded oracle. Genuine
-# defects produce O(1)+ errors.
+# The thresholds themselves live in soda_tpu.utils (DEFAULT_THRESHOLD
+# 1e-4; KERNEL_THRESHOLDS: contrast 1e-3). contrast's 17x17 table sums
+# +-100-coefficient terms to ~5e3 magnitude before cancelling; ONE
+# FMA-contracted ulp of the running sum is ~5e-4, so cells that cancel
+# toward zero legitimately differ by that much between XLA and the
+# individually-rounded oracle. Genuine defects produce O(1)+ errors.
 #
-# This rationale is MEASURED, not just argued (round 4): a float64
-# oracle computes the truth and the executor's error against it is
-# asserted to be no worse than the f32 oracle's own error —
-# tests/test_f64_evidence.py on CPU, `tpu_validate --variants`
-# case 'contrast+f64truth' on hardware.
-KERNEL_THRESHOLDS = {'contrast': 1e-3}
+# This rationale is MEASURED, not just argued: a float64 oracle computes
+# the truth and the executor's error against it is asserted to be no
+# worse than the f32 oracle's own error — tests/test_f64_evidence.py.
 
 
-def threshold_for(name: str) -> float:
-  for key, value in KERNEL_THRESHOLDS.items():
-    if name.startswith(key):
-      return value
-  return THRESHOLD
+def xla_coarse(stencil, shape):
+  """The XLA executor with one jitted region per stage (cluster:
+  coarse): every stage boundary round-trips device memory."""
+  from soda_tpu.backend.xla import XlaExecutor
+  return XlaExecutor(stencil, shape, cluster='coarse')
 
 
 def assert_close_reference(got, want, is_float: bool, context: str = '',
@@ -52,11 +49,9 @@ def assert_close_reference(got, want, is_float: bool, context: str = '',
     np.testing.assert_array_equal(got, want, err_msg=context)
     return
   if threshold is None:
-    threshold = threshold_for(context)  # context leads with the kernel
-  t2 = float(threshold) ** 2
-  d2 = (got.astype(np.float64) - want.astype(np.float64)) ** 2
-  w2 = want.astype(np.float64) ** 2
-  bad = (d2 > t2) & (d2 > t2 * w2)
+    # context leads with the kernel's name
+    threshold = utils.threshold_for(context)
+  bad = utils.criterion_misses(got, want, threshold)
   if bad.any():
     idx = np.argwhere(bad)[0]
     raise AssertionError(

@@ -11,10 +11,9 @@ import pytest
 
 from soda_tpu import corpus
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
 from soda_tpu.backend.xla import XlaExecutor
 
-from checks import assert_close_reference
+from checks import assert_close_reference, xla_coarse
 
 
 def build_preserve(name):
@@ -44,7 +43,7 @@ def test_oracle_preserves_borders(name):
                          stencil.symbol_table[out_name].is_float, name)
 
 
-@pytest.mark.parametrize('executor_cls', [XlaExecutor, PallasExecutor])
+@pytest.mark.parametrize('executor_cls', [XlaExecutor, xla_coarse])
 @pytest.mark.parametrize('name', ['blur', 'jacobi2d'])
 def test_backends_match_oracle_with_preserve(name, executor_cls):
   stencil = build_preserve(name)
@@ -60,11 +59,17 @@ def test_backends_match_oracle_with_preserve(name, executor_cls):
         stencil.symbol_table[out_name].is_float, f'{name}:preserve')
 
 
-def test_preserve_works_in_rotate_mode():
+def test_preserve_through_chained_steps():
+  """Chained applications keep the boundary fixed: the paired input's
+  border cells survive every step (Dirichlet boundary)."""
+  import soda_tpu
   stencil = build_preserve('jacobi2d')
   shape = corpus.TEST_DIMS['jacobi2d']
   inputs = reference.make_test_inputs(stencil, shape)
-  want = reference.run(stencil, inputs)
-  got = PallasExecutor(stencil, shape, lane_shift='rotate')(inputs)
-  assert_close_reference(np.asarray(got['t0']), want['t0'], True,
-                         'preserve-rotate')
+  want = dict(inputs)
+  for _ in range(3):
+    want = {'t1': reference.run(stencil, want)['t0']}
+  ex = XlaExecutor(stencil, shape)
+  (got,) = soda_tpu.chained(ex, 3)(*ex.prepare(inputs))
+  assert_close_reference(np.asarray(got), want['t1'], True,
+                         'preserve-chained')

@@ -38,19 +38,20 @@ def test_emit_dot(tmp_path):
 
 
 def test_estimate(tmp_path):
+  model = tmp_path / 'h100.json'
+  model.write_text(json.dumps({'name': 'H100', 'hbm_gbps': 3350.0,
+                               'gflops': 67000.0}))
   out = tmp_path / 'est.json'
-  r = run_cli(['-', '--estimate', str(out), '--shape', '512,64'],
+  r = run_cli(['-', '--estimate', str(out), '--shape', '512,64',
+               '--model-file', str(model)],
               corpus.CORPUS['jacobi2d'])
   assert r.returncode == 0, r.stderr
   est = json.loads(out.read_text())
   assert est['bound'] in ('memory', 'compute')
-  assert est['vmem_ok'] is True
   assert est['stages'] == 2  # iterate: 2
-  # dispatch-overhead model: est_time folds the fixed per-grid-step
-  # cost on top of the pure roofline; more steps -> more overhead
-  assert est['grid_steps'] == -(-512 // est['block_rows'])
-  assert est['est_time_s'] >= est['ideal_time_s']
-  assert est['est_roofline_frac'] <= est['model_roofline_frac']
+  assert est['hbm_bytes'] == 512 * 64 * 8  # f32 in + f32 out
+  assert est['roofline_time_s'] == max(est['memory_time_s'],
+                                       est['compute_time_s'])
 
 
 def test_run_self_test_passes():
@@ -78,71 +79,39 @@ def test_no_action_errors():
   assert r.returncode != 0
 
 
-def test_run_with_kernel_opts():
-  """--kernel-opt KEY=VALUE forwards explicit fused-kernel config
-  (ints, bools, and mode strings) to the Pallas executor."""
-  r = run_cli(['-', '--run', '--backend', 'pallas', '--shape', '64,64',
-               '--kernel-opt', 'block_rows=16',
-               '--kernel-opt', 'stage_mode=value',
-               '--kernel-opt', 'shift_mode=roll',
-               '--kernel-opt', 'stream_loop=peel',
-               '--kernel-opt', 'prefetch=3'],
+def test_estimate_needs_a_known_device():
+  """Without --model-file the estimate is for the attached device; the
+  CPU has no published peak, which is a clean error, not a default."""
+  r = run_cli(['-', '--estimate', '-', '--shape', '64,64'],
               corpus.CORPUS['blur'])
+  assert r.returncode == 1
+  assert 'no published peak' in r.stderr
+  assert 'Traceback' not in r.stderr
+
+
+def test_compile_stats_on_auto_executor(tmp_path):
+  out = tmp_path / 'stats.json'
+  r = run_cli(['-', '--compile-stats', str(out), '--shape', '64,64'],
+              corpus.CORPUS['blur'])
+  assert r.returncode == 0, r.stderr
+  stats = json.loads(out.read_text())
+  assert stats['argument_size_in_bytes'] == 64 * 64 * 2  # uint16
+
+
+@pytest.mark.parametrize('backend', ['sharded', 'replicated'])
+def test_run_bench_parallel_backends(backend):
+  r = run_cli(['-', '--run', '--bench', '--backend', backend,
+               '--shape', '64,64'], corpus.CORPUS['blur'])
   assert r.returncode == 0, r.stderr + r.stdout
   assert 'PASS' in r.stdout
+  assert 'Kernel execution time' in r.stdout
 
 
-def test_kernel_opts_exclusive_with_tune():
-  r = run_cli(['-', '--run', '--tune', '--shape', '64,64',
-               '--kernel-opt', 'block_rows=16'],
+@pytest.mark.parametrize('flag', [
+    ['--backend', 'pallas'], ['--tune'], ['--kernel-opt', 'block_rows=16'],
+    ['--cr-cost', 'ops']])
+def test_retired_flags_are_rejected(flag):
+  r = run_cli(['-', '--run', '--shape', '64,64'] + flag,
               corpus.CORPUS['blur'])
-  assert r.returncode != 0
-  assert 'mutually exclusive' in r.stderr
-
-
-def test_kernel_opts_rejected_for_xla():
-  r = run_cli(['-', '--run', '--backend', 'xla', '--shape', '64,64',
-               '--kernel-opt', 'block_rows=16'],
-              corpus.CORPUS['blur'])
-  assert r.returncode != 0
-
-
-def test_kernel_opt_unknown_key_clean_error():
-  r = run_cli(['-', '--run', '--backend', 'pallas', '--shape', '64,64',
-               '--kernel-opt', 'block_row=16'],  # typo
-              corpus.CORPUS['blur'])
-  assert r.returncode != 0
-  assert 'unknown --kernel-opt key' in r.stderr
-  assert 'Traceback' not in r.stderr
-
-
-def test_kernel_opt_bad_value_clean_error():
-  r = run_cli(['-', '--run', '--backend', 'pallas', '--shape', '64,64',
-               '--kernel-opt', 'prefetch=9'],
-              corpus.CORPUS['blur'])
-  assert r.returncode != 0
-  assert 'ERROR' in r.stderr
-  assert 'Traceback' not in r.stderr
-
-
-def test_estimate_honors_kernel_opts(tmp_path):
-  """--kernel-opt applies to --estimate too (r3 review find: it was
-  silently ignored outside --run)."""
-  out = tmp_path / 'est.json'
-  r = run_cli(['-', '--estimate', str(out), '--shape', '512,512',
-               '--kernel-opt', 'block_rows=16',
-               '--kernel-opt', 'stream_loop=true'],
-              corpus.CORPUS['jacobi2d'])
-  assert r.returncode == 0, r.stderr
-  est = json.loads(out.read_text())
-  assert est['block_rows'] == 16
-  # stream_loop: one dispatch, not one per grid step
-  assert est['grid_step_overhead_s'] < est['grid_steps'] * 1e-6 + 1e-12
-
-
-def test_kernel_opt_rejected_for_estimate_typo():
-  r = run_cli(['-', '--estimate', '-', '--shape', '64,64',
-               '--kernel-opt', 'bogus=1'],
-              corpus.CORPUS['blur'])
-  assert r.returncode != 0
-  assert 'unknown --kernel-opt key' in r.stderr
+  assert r.returncode == 2  # argparse usage error
+  assert 'PASS' not in r.stdout

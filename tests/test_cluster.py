@@ -1,8 +1,9 @@
-"""Cluster granularity on the Pallas path: per-group kernels vs oracle.
+"""Cluster granularity: per-stage jitted regions vs the oracle.
 
 The reference re-runs every kernel under each cluster granularity
-(tests/test-cluster.sh:5-66); this is the same gate for the grouped
-Pallas executor (coarse == one kernel per stage, HBM handoff).
+(tests/test-cluster.sh:5-66); this is the same gate for the XLA
+executor, where ``coarse`` (and ``fine``) jit each stage separately and
+hand every stage result over through device memory.
 """
 
 import numpy as np
@@ -10,7 +11,7 @@ import pytest
 
 from soda_tpu import corpus
 from soda_tpu.backend import get_executor, reference
-from soda_tpu.backend.grouped import GroupedPallasExecutor
+from soda_tpu.backend.xla import XlaExecutor
 
 from checks import assert_close_reference
 
@@ -23,9 +24,9 @@ def test_coarse_cluster_matches_oracle(name):
   inputs = reference.make_test_inputs(stencil, shape)
   params = reference.make_test_params(stencil)
   want = reference.run(stencil, inputs, params)
-  ex = get_executor(stencil, shape, 'pallas')
-  assert isinstance(ex, GroupedPallasExecutor)
-  assert len(ex.executors) == len(ex.plan.stages)  # one kernel per stage
+  ex = get_executor(stencil, shape)
+  assert isinstance(ex, XlaExecutor)
+  assert len(ex.plan.groups) == len(ex.plan.stages)  # one jit per stage
   got = ex(inputs, params)
   for out in stencil.output_names:
     region = reference.output_valid_slices(stencil, shape, out)
@@ -37,8 +38,8 @@ def test_coarse_cluster_matches_oracle(name):
 def test_fine_behaves_as_coarse():
   stencil = corpus.build('blur', cluster='fine')
   shape = corpus.TEST_DIMS['blur']
-  ex = get_executor(stencil, shape, 'pallas')
-  assert isinstance(ex, GroupedPallasExecutor)
+  ex = get_executor(stencil, shape)
+  assert len(ex.plan.groups) == len(ex.plan.stages)
   inputs = reference.make_test_inputs(stencil, shape)
   want = reference.run(stencil, inputs)
   got = ex(inputs)
@@ -52,7 +53,7 @@ def test_preserve_border_through_groups():
   shape = corpus.TEST_DIMS['jacobi2d']
   inputs = reference.make_test_inputs(stencil, shape)
   want = reference.run(stencil, inputs)
-  got = get_executor(stencil, shape, 'pallas')(inputs)
+  got = get_executor(stencil, shape)(inputs)
   # preserve defines every cell, including the border
   assert_close_reference(np.asarray(got['t0']), want['t0'], True,
-                         'preserve:grouped')
+                         'preserve:coarse')

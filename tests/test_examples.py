@@ -1,4 +1,4 @@
-"""Smoke tests for the examples (tiny shapes, CPU interpret)."""
+"""Smoke tests for the examples (tiny shapes, on the CPU)."""
 
 import pathlib
 import runpy

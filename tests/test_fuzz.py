@@ -13,10 +13,10 @@ import pytest
 from soda_tpu import utils
 from soda_tpu.api import build_stencil
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
 from soda_tpu.backend.xla import XlaExecutor
+from soda_tpu.parallel.spmd import ShardedExecutor
 
-from checks import assert_close_reference
+from checks import assert_close_reference, xla_coarse
 
 
 def oracle_or_skip(stencil, inputs):
@@ -112,17 +112,17 @@ def test_fuzz_backends_match_oracle(seed):
   if any(s.stop - s.start <= 0 for s in region):
     pytest.skip('window exceeds the test grid')
   is_float = stencil.symbol_table['out'].is_float
-  for cls in (XlaExecutor, PallasExecutor):
+  for tag, cls in (('xla', XlaExecutor), ('xla-coarse', xla_coarse)):
     got = cls(stencil, shape)(inputs)
     assert_close_reference(
         np.asarray(got['out'])[region], want['out'][region], is_float,
-        '%s seed=%d\n%s' % (cls.__name__, seed, program))
+        '%s seed=%d\n%s' % (tag, seed, program))
 
 
 @pytest.mark.parametrize('seed', range(40, 55))
 def test_fuzz_cr_and_cluster(seed):
   """Fuzz the optimization paths: computation reuse rewrites and the
-  grouped (cluster: coarse) executor must match the oracle of the SAME
+  per-stage (cluster: coarse) executor must match the oracle of the SAME
   rewritten program (the reference re-runs its corpus per knob;
   random programs cover rewrite edge cases the corpus misses)."""
   rng = np.random.default_rng(seed)
@@ -141,11 +141,11 @@ def test_fuzz_cr_and_cluster(seed):
   if any(s.stop - s.start <= 0 for s in region):
     pytest.skip('window exceeds the test grid')
   from soda_tpu.backend import get_executor
-  got = get_executor(stencil, shape, 'pallas')(inputs)
+  got = get_executor(stencil, shape)(inputs)
   assert_close_reference(
       np.asarray(got['out'])[region], want['out'][region],
       stencil.symbol_table['out'].is_float,
-      'grouped seed=%d\n%s' % (seed, program))
+      'coarse seed=%d\n%s' % (seed, program))
 
 
 @pytest.mark.parametrize('seed', range(55, 63))
@@ -164,8 +164,6 @@ def test_fuzz_sharded(seed):
   region = reference.output_valid_slices(stencil, shape)
   if any(s.stop - s.start <= 0 for s in region):
     pytest.skip('window exceeds the test grid')
-  from soda_tpu.parallel.spmd import ShardedExecutor
-  from soda_tpu import utils
   try:
     ex = ShardedExecutor(stencil, shape)
   except utils.InputError as e:
@@ -180,7 +178,7 @@ def test_fuzz_sharded(seed):
 def gen_linear_program(rng: np.random.Generator) -> str:
   """Programs aimed at the pass pipeline's newest surface: rank-1
   separable grids (sometimes perturbed off rank 1), overflow-prone sum
-  chains (wrap sinking), and constant-division tails (pow2 shift vs
+  chains (per-stage store wraps), and constant-division tails (pow2 shift vs
   general C division)."""
   is_float = bool(rng.integers(0, 4) == 0)
   in_type = 'float' if is_float else \
@@ -226,8 +224,8 @@ def gen_linear_program(rng: np.random.Generator) -> str:
 @pytest.mark.parametrize('seed', range(63, 95))
 def test_fuzz_pass_soundness_vs_unfactored_oracle(seed):
   """The strongest contract check: the FULL pipeline (separable
-  factorization + wrap sinking + pow2-shift division in the Pallas
-  executor) against the oracle of the UNFACTORED program. Integer
+  factorization + pow2-shift division in the XLA executor) against
+  the oracle of the UNFACTORED program. Integer
   programs must be bit-exact end to end; float programs stay within
   the reference THRESHOLD (factorization is reassociation)."""
   rng = np.random.default_rng(seed)
@@ -247,7 +245,7 @@ def test_fuzz_pass_soundness_vs_unfactored_oracle(seed):
   if any(s.stop - s.start <= 0 for s in region):
     pytest.skip('window exceeds the test grid')
   is_float = plain.symbol_table['out'].is_float
-  got = PallasExecutor(factored, shape)(inputs)
+  got = XlaExecutor(factored, shape)(inputs)
   assert_close_reference(
       np.asarray(got['out'])[region], want['out'][region], is_float,
       'pass-soundness seed=%d\n%s' % (seed, program))
@@ -312,19 +310,18 @@ def test_fuzz_idempotent_window(seed):
     pytest.skip('window exceeds the test grid')
   is_float = chained.symbol_table['out'].is_float
   for stencil, tag in ((chained, 'chained'), (exact, 'exact')):
-    got = PallasExecutor(stencil, shape)(inputs)
+    got = XlaExecutor(stencil, shape)(inputs)
     assert_close_reference(
         np.asarray(got['out'])[region], want['out'][region], is_float,
         'idem-%s seed=%d\n%s' % (tag, seed, program))
 
 
 @pytest.mark.parametrize('seed', range(95, 105))
-def test_fuzz_roll_shift_and_hybrid(seed):
-  """Fuzz the round-3 roll-shift value mode and its transposed-region
-  hybrid: full-slab-extent values with every shifted load an
-  in-register rotate must keep wrap garbage out of the valid region.
-  One-off campaigns: 200 programs plain roll + 150 forced-hybrid, 0
-  failures (VALIDATION.md); these seeds keep the paths pinned."""
+def test_fuzz_sharded_2d_mesh(seed):
+  """Random 2-D and 3-D programs over a 4x2 mesh of the virtual devices:
+  the two-phase exchange must carry corner halos for any window."""
+  import jax
+  from jax.sharding import Mesh
   rng = np.random.default_rng(seed)
   dim = 2 if seed % 3 else 3
   program = gen_program(rng, dim)
@@ -332,25 +329,22 @@ def test_fuzz_roll_shift_and_hybrid(seed):
     stencil = build_stencil(program)
   except Exception as e:
     pytest.skip('generator produced invalid program: %r' % e)
-  shape = (24, 32) if dim == 2 else (16, 16, 32)
+  shape = (64, 64) if dim == 2 else (32, 32, 32)
   inputs = reference.make_test_inputs(stencil, shape, seed=seed)
   want = oracle_or_skip(stencil, inputs)
   region = reference.output_valid_slices(stencil, shape)
   if any(s.stop - s.start <= 0 for s in region):
     pytest.skip('window exceeds the test grid')
-  is_float = stencil.symbol_table['out'].is_float
-  modes = [{}]
-  if dim == 2:  # transposed regions are 2-D machinery
-    modes.append({'transpose_lanes': 'on'})
-  # narrow i16 stages compose with roll (axis_roll widens; float and
-  # ineligible programs take the knob as a no-op)
-  modes.append({'narrow': 'on'})
-  for extra in modes:
-    got = PallasExecutor(stencil, shape, stage_mode='value',
-                         shift_mode='roll', block_rows=8, **extra)(inputs)
-    assert_close_reference(
-        np.asarray(got['out'])[region], want['out'][region], is_float,
-        'roll %s seed=%d\n%s' % (extra, seed, program))
+  mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ('x', 'y'))
+  try:
+    ex = ShardedExecutor(stencil, shape, mesh=mesh)
+  except utils.InputError as e:
+    pytest.skip('halo exceeds local extent: %r' % e)
+  got = ex(inputs)
+  assert_close_reference(
+      np.asarray(got['out'])[region], want['out'][region],
+      stencil.symbol_table['out'].is_float,
+      'mesh4x2 seed=%d\n%s' % (seed, program))
 
 
 def gen_multi_output_program(rng: np.random.Generator) -> str:
@@ -403,10 +397,9 @@ def gen_multi_output_program(rng: np.random.Generator) -> str:
 
 @pytest.mark.parametrize('seed', range(125, 140))
 def test_fuzz_multi_output(seed):
-  """Multi-output programs through the fused and grouped executors
-  (plus roll mode on a subset) vs the oracle, every output compared in
-  its own valid region. Offline campaign: 150 programs x
-  pallas/grouped/sharded/roll, 0 failures; these seeds pin the path."""
+  """Multi-output programs through the fused and per-stage XLA
+  executors (plus the sharded executor on a subset) vs the oracle,
+  every output compared in its own valid region."""
   rng = np.random.default_rng(seed)
   program = gen_multi_output_program(rng)
   if seed % 3 == 0:
@@ -431,12 +424,10 @@ def test_fuzz_multi_output(seed):
   if any(s.stop - s.start <= 0 for o in outs for s in regions[o]):
     pytest.skip('window exceeds the test grid')
   is_float = stencil.symbol_table[outs[0]].is_float
-  from soda_tpu.backend.grouped import GroupedPallasExecutor
-  runners = [('pallas', lambda: PallasExecutor(stencil, shape)),
-             ('grouped', lambda: GroupedPallasExecutor(stencil, shape))]
+  runners = [('xla', lambda: XlaExecutor(stencil, shape)),
+             ('xla-coarse', lambda: xla_coarse(stencil, shape))]
   if seed % 4 == 2:
-    runners.append(('roll', lambda: PallasExecutor(
-        stencil, shape, shift_mode='roll', stage_mode='value')))
+    runners.append(('sharded', lambda: ShardedExecutor(stencil, shape)))
   for tag, mk in runners:
     got = mk()(inputs)
     for o in outs:

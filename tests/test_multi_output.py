@@ -7,11 +7,10 @@ import pytest
 
 from soda_tpu.api import build_stencil
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
 from soda_tpu.backend.xla import XlaExecutor
 from soda_tpu.parallel.spmd import ShardedExecutor
 
-from checks import assert_close_reference
+from checks import assert_close_reference, xla_coarse
 
 TWO_OUT = '''
 kernel: gradients
@@ -47,7 +46,7 @@ SHAPE = (24, 64)
 
 @pytest.mark.parametrize('program', [TWO_OUT, TWO_IN_TWO_OUT_ITER],
                          ids=['two-out', 'two-in-two-out-iterate2'])
-@pytest.mark.parametrize('executor_cls', [XlaExecutor, PallasExecutor])
+@pytest.mark.parametrize('executor_cls', [XlaExecutor, xla_coarse])
 def test_multi_output(program, executor_cls):
   stencil = build_stencil(program)
   inputs = reference.make_test_inputs(stencil, SHAPE)
@@ -60,20 +59,20 @@ def test_multi_output(program, executor_cls):
                            want[name][region], True, name)
 
 
-@pytest.mark.parametrize('kw', [
-    {'out_dma': True},
-    {'stream_loop': True},
-    {'stream_loop': 'peel', 'prefetch': 3},
-], ids=['out-dma', 'stream-loop', 'peel-prefetch3'])
-def test_multi_output_staged_stores(kw):
-  """Multi-output kernels through the out_dma staging path (one
-  double-buffered staging slab + semaphore per output), incl. the
-  stream_loop bodies that imply it."""
+@pytest.mark.parametrize('mesh_shape', [(8,), (4, 2), (2, 4)],
+                         ids=['mesh8', 'mesh4x2', 'mesh2x4'])
+def test_multi_output_sharded_meshes(mesh_shape):
+  """A shared local feeding two outputs over 1-D and 2-D meshes: every
+  output is cropped and stitched from its own shard extents."""
+  import jax
+  from jax.sharding import Mesh
   stencil = build_stencil(TWO_OUT)
   shape = (64, 64)
+  devices = np.array(jax.devices()[:int(np.prod(mesh_shape))])
+  mesh = Mesh(devices.reshape(mesh_shape), tuple('xy'[:len(mesh_shape)]))
   inputs = reference.make_test_inputs(stencil, shape)
   want = reference.run(stencil, inputs)
-  got = PallasExecutor(stencil, shape, block_rows=16, **kw)(inputs)
+  got = ShardedExecutor(stencil, shape, mesh=mesh)(inputs)
   for name in stencil.output_names:
     region = reference.output_valid_slices(stencil, shape, name)
     assert_close_reference(np.asarray(got[name])[region],

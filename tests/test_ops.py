@@ -1,15 +1,15 @@
 """Operator coverage beyond the corpus: %, select, comparisons,
-bitwise ops, unary minus/not — oracle vs XLA vs Pallas."""
+bitwise ops, unary minus/not — oracle vs the XLA executor, fused and
+per-stage."""
 
 import numpy as np
 import pytest
 
 from soda_tpu.api import build_stencil
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
 from soda_tpu.backend.xla import XlaExecutor
 
-from checks import assert_close_reference
+from checks import assert_close_reference, xla_coarse
 
 HEADER = '''
 kernel: ops
@@ -55,7 +55,7 @@ def test_op_coverage(name):
   inputs = reference.make_test_inputs(stencil, SHAPE)
   want = reference.run(stencil, inputs)
   region = reference.output_valid_slices(stencil, SHAPE)
-  for cls in (XlaExecutor, PallasExecutor):
+  for cls in (XlaExecutor, xla_coarse):
     got = cls(stencil, SHAPE)(inputs)
     assert_close_reference(
         np.asarray(got['y'])[region], want['y'][region], False,

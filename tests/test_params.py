@@ -2,7 +2,7 @@
 
 The reference supports scalar/array kernel parameters with dup /
 partition attributes (grammar.py:153-171); here they become extra
-device arrays indexed at constant offsets inside the fused kernel.
+device arrays indexed at constant offsets inside the jitted stages.
 """
 
 import numpy as np
@@ -10,11 +10,10 @@ import pytest
 
 from soda_tpu.api import build_stencil
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
 from soda_tpu.backend.xla import XlaExecutor
 from soda_tpu.codegen import jax_source
 
-from checks import assert_close_reference
+from checks import assert_close_reference, xla_coarse
 
 CONV_PARAM = '''
 kernel: wconv
@@ -58,7 +57,7 @@ def test_param_parses_and_runs_oracle():
                              atol=2e-5)
 
 
-@pytest.mark.parametrize('executor_cls', [XlaExecutor, PallasExecutor])
+@pytest.mark.parametrize('executor_cls', [XlaExecutor, xla_coarse])
 def test_param_backends_match_oracle(executor_cls):
   stencil, inputs, params, want = setup()
   got = executor_cls(stencil, SHAPE)(inputs, params)

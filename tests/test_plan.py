@@ -1,4 +1,4 @@
-"""Fusion-plan layer tests: margins, halos, VMEM accounting, graphviz."""
+"""Fusion-plan layer tests: margins, halos, grouping, graphviz."""
 
 import pytest
 
@@ -45,12 +45,28 @@ def test_cluster_groups():
     plan_mod.make_plan(stencil, 'autobridge')
 
 
-def test_vmem_bytes_scales_with_block():
-  stencil = corpus.build('jacobi2d')
-  plan = plan_mod.make_plan(stencil)
-  small = plan.vmem_bytes((16, 32))
-  big = plan.vmem_bytes((64, 32))
-  assert 0 < small < big
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_stages_follow_dependencies(name):
+  """Every stage reads only inputs, params and stages scheduled before
+  it (the order every executor evaluates the plan in)."""
+  stencil = corpus.build(name)
+  seen = set(stencil.input_names) | set(stencil.param_names)
+  for stage in plan_mod.make_plan(stencil).stages:
+    assert set(stage.tensor.ld_refs) <= seen, (name, stage.name)
+    seen.add(stage.name)
+  assert set(stencil.output_names) <= seen
+
+
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_coarse_groups_are_single_stages(name):
+  stencil = corpus.build(name)
+  full = plan_mod.make_plan(stencil, 'full')
+  coarse = plan_mod.make_plan(stencil, 'coarse')
+  assert [s.name for s in full.groups[0]] == [s.name for s in full.stages]
+  assert [[s.name] for s in coarse.stages] == \
+      [[s.name for s in g] for g in coarse.groups]
+  assert len(plan_mod.make_plan(stencil, 'fine').groups) == \
+      len(coarse.groups)
 
 
 def test_dot_contains_stages_and_edges():
@@ -80,89 +96,6 @@ def test_materialized_margins_vs_window_margins():
       else:
         assert all(m >= w for m, w in zip(mlo, wlo)), (name, tensor.name)
         assert all(m >= w for m, w in zip(mhi, whi)), (name, tensor.name)
-
-
-class TestVmemEstimate:
-  """Pin estimate_vmem's measured fold-temporary heuristic.
-
-  The 2 / 3 / taps+2 factors were calibrated against real Mosaic
-  allocation behavior (PARITY.md "Known gaps"); a Mosaic update that
-  shifts them must trip these pins and force re-measurement, not
-  silently mis-size blocks (VERDICT r2 weak #5).
-  """
-
-  def _parts(self, name, tile, shape, block, mode):
-    from soda_tpu.backend.pallas_kernel import estimate_vmem
-    plan = plan_mod.make_plan(
-        corpus.build(name, tile_size=tile), 'full')
-    return estimate_vmem(plan, shape, block, mode)
-
-  def test_value_mode_cheapest_then_rotate_then_slice(self):
-    # erosion: 19-tap folds. value < rotate(narrow) < slice(wide)
-    value = self._parts('erosion', (512, 0), (4096, 512), 64, 'value')
-    wide = self._parts('erosion', (512, 0), (4096, 512), 64, 'vmem')
-    narrow = self._parts('erosion', (256, 0), (4096, 256), 64, 'vmem')
-    assert value < wide
-    assert narrow < wide  # same mode, narrower lanes AND factor 3
-    # slice-mode erosion keeps ~all 19 tap loads live: factor 19+2
-    # vs value mode's 2 on the same shape
-    assert (wide - value) > 8 * 512 * 64 * 4  # >= several slabs apart
-
-  def test_monotonic_in_block_rows(self):
-    sizes = [self._parts('blur', (2048, 0), (8192, 2048), b, 'value')
-             for b in (8, 64, 512)]
-    assert sizes == sorted(sizes) and sizes[0] < sizes[-1]
-
-  def test_chosen_block_fits_budget_and_next_does_not(self):
-    from soda_tpu.backend.pallas_kernel import (_VMEM_BUDGET,
-                                                choose_block_rows,
-                                                estimate_vmem)
-    plan = plan_mod.make_plan(corpus.build('blur', tile_size=(2048, 0)),
-                              'full')
-    shape = (8192, 2048)
-    b = choose_block_rows(plan, shape, stage_mode='value')
-    assert estimate_vmem(plan, shape, b, 'value') <= _VMEM_BUDGET
-    if b < 1024:
-      assert estimate_vmem(plan, shape, 2 * b, 'value') > _VMEM_BUDGET
-
-
-class TestOpModelModes:
-  """The distance-aware shift-cost model (experiments/exp24): per-mode
-  tables, aligned-distance discounts, and the auto min-over-modes."""
-
-  def _model(self, name, mode, lanes=2048, **overrides):
-    from soda_tpu.model import estimate
-    st = corpus.build(name, **overrides)
-    pl = plan_mod.make_plan(st, 'full')
-    return estimate.op_model(st, pl, lanes=lanes, mode=mode)
-
-  def test_roll_distance_classes(self):
-    # erosion's greedy+idempotent chain per axis: doubling shifts
-    # 1/2/4/8 plus the final overlap step's two anchored reads at
-    # -9/-6. Only d = 8 earns the 8-aligned vreg-renumber discount;
-    # the rest pay the misaligned concat-roll
-    m = self._model('erosion', 'roll',
-                    optimizations={'computation-reuse': 'greedy'})
-    assert m['lane_mode'] == 'roll'
-    assert m['shifts']['sublane_aligned'] == 1     # d = 8
-    assert m['shifts']['sublane'] == 5             # d = 1, 2, 4, -9, -6
-    assert m['shifts']['lane_aligned'] == 0        # window < 128 lanes
-    assert m['shifts']['lane'] == 6
-
-  def test_auto_is_min_over_modes(self):
-    from soda_tpu.model import estimate
-    for name in ('blur', 'erosion', 'jacobi2d'):
-      st = corpus.build(name)
-      pl = plan_mod.make_plan(st, 'full')
-      auto = estimate.op_model(st, pl, lanes=2048, mode='auto')
-      per_mode = [estimate.op_model(st, pl, lanes=2048, mode=m)
-                  for m in ('slice', 'roll')]
-      assert auto['slots_per_cell'] == min(
-          p['slots_per_cell'] for p in per_mode)
-
-  def test_narrow_lanes_allow_rotate(self):
-    a = self._model('blur', 'auto', lanes=128)
-    assert a['lane_mode'] == 'rotate'  # 1.5-slot narrow in-register mode
 
 
 class TestValidateGrid:
@@ -199,125 +132,13 @@ class TestValidateGrid:
 
   def test_all_executor_front_doors_reject(self):
     from soda_tpu import utils
-    from soda_tpu.backend import reference
-    from soda_tpu.backend.grouped import GroupedPallasExecutor
-    from soda_tpu.backend.pallas_kernel import PallasExecutor
+    from soda_tpu.backend import get_executor, reference
     from soda_tpu.backend.xla import XlaExecutor
     st = corpus.build('erosion')  # 19x19 window
     for mk in (lambda: XlaExecutor(st, (10, 128)),
-               lambda: PallasExecutor(st, (10, 128)),
-               lambda: GroupedPallasExecutor(st, (10, 128)),
+               lambda: XlaExecutor(st, (10, 128), cluster='coarse'),
+               lambda: get_executor(st, (10, 128), 'replicated'),
                lambda: reference.run(
                    st, reference.make_test_inputs(st, (10, 128)))):
       with pytest.raises(utils.InputError):
         mk()
-
-
-class TestPrefetchVmem:
-  """prefetch>2 allocates depth input slabs (pallas_kernel n_buf);
-  the estimator and block chooser must count them (r3 review find)."""
-
-  def test_estimate_counts_prefetch_slabs(self):
-    from soda_tpu.backend.pallas_kernel import estimate_vmem
-    plan = plan_mod.make_plan(corpus.build('blur', tile_size=(2048, 0)),
-                              'full')
-    shape = (8192, 2048)
-    v2 = estimate_vmem(plan, shape, 64, 'value', prefetch=2)
-    v4 = estimate_vmem(plan, shape, 64, 'value', prefetch=4)
-    # exactly 2 extra input slabs of the (slab, rest) cross-section
-    assert v4 > v2
-    assert (v4 - v2) % 2 == 0
-
-  def test_choose_block_shrinks_under_deep_prefetch(self):
-    from soda_tpu.backend.pallas_kernel import (_VMEM_BUDGET,
-                                                choose_block_rows,
-                                                estimate_vmem)
-    plan = plan_mod.make_plan(corpus.build('blur', tile_size=(2048, 0)),
-                              'full')
-    shape = (8192, 2048)
-    b4 = choose_block_rows(plan, shape, stage_mode='value', prefetch=4)
-    assert estimate_vmem(plan, shape, b4, 'value',
-                         prefetch=4) <= _VMEM_BUDGET
-    assert b4 <= choose_block_rows(plan, shape, stage_mode='value')
-
-  def test_executor_gate_uses_prefetch(self):
-    # the budget-driven pick must differ (or at least still fit) when
-    # the executor is constructed at prefetch=4
-    from soda_tpu.backend.pallas_kernel import PallasExecutor
-    st = corpus.build('blur', tile_size=(2048, 0))
-    ex = PallasExecutor(st, (8192, 2048), stage_mode='value',
-                        prefetch=4, interpret=True)
-    from soda_tpu.backend.pallas_kernel import _VMEM_BUDGET, estimate_vmem
-    assert estimate_vmem(ex.plan, (8192, 2048), ex.block_rows, 'value',
-                         prefetch=4) <= _VMEM_BUDGET
-
-
-class TestEstimateMidTiling:
-  """The analytic estimate mirrors the auto-dispatch's mid-tiling, so
-  grid-step overhead counts grid * grid_m steps (r3 review find: it
-  understated 256^3 workloads by the grid_m factor)."""
-
-  def test_jacobi3d_256_counts_mid_tiles(self):
-    from soda_tpu.model.estimate import estimate
-    st = corpus.build('jacobi3d', tile_size=(256, 256, 0))
-    est = estimate(st, (256, 256, 256))
-    assert est['grid_m'] >= 2  # 256x256 cross-section over-budget
-    assert est['mid_tile'] is not None
-    assert est['grid_steps'] >= est['grid_m'] * (256 // 256)
-    assert est['grid_steps'] % est['grid_m'] == 0
-
-  def test_small_3d_no_mid_tiles(self):
-    from soda_tpu.model.estimate import estimate
-    st = corpus.build('jacobi3d', tile_size=(64, 64, 0))
-    est = estimate(st, (64, 64, 64))
-    assert est['grid_m'] == 1
-    assert est['mid_tile'] is None
-
-  def test_kernel_opts_pin_the_config(self):
-    from soda_tpu.model.estimate import estimate
-    st = corpus.build('jacobi2d')
-    base = estimate(st, (512, 128))
-    pinned = estimate(st, (512, 128), kernel_opts={'block_rows': 16})
-    assert pinned['block_rows'] == 16
-    assert pinned['grid_steps'] == -(-512 // 16)
-    assert base['block_rows'] != 16 or base is not pinned
-
-  def test_estimate_mirror_matches_executor_pick(self):
-    # the estimate's auto mid-tile mirror must track the REAL
-    # dispatch (MidTiledPallasExecutor's pick), or est_time drifts
-    from soda_tpu.backend.pallas_kernel import MidTiledPallasExecutor
-    from soda_tpu.model.estimate import estimate
-    st = corpus.build('jacobi3d', tile_size=(256, 256, 0))
-    est = estimate(st, (256, 256, 256))
-    ex = MidTiledPallasExecutor(st, (256, 256, 256), interpret=True)
-    assert est['grid_m'] == ex.grid_m
-    assert est['mid_tile'] == ex.mid_tile
-
-
-class TestHybridClampGating:
-  """The hybrid-roll 256-row Mosaic clamp applies only when a
-  transposed lane region actually forms (r3 review find: it clamped
-  every 2-D roll kernel, costing blur its measured 512-row block)."""
-
-  def test_blur_roll_not_clamped(self):
-    from soda_tpu.backend.pallas_kernel import (PallasExecutor,
-                                                choose_block_rows,
-                                                transposed_lane_regions)
-    st = corpus.build('blur', tile_size=(1024, 0))
-    shape = (8192, 1024)
-    ex = PallasExecutor(st, shape, stage_mode='value',
-                        shift_mode='roll', interpret=True)
-    assert not transposed_lane_regions(ex.plan, st, 'auto')
-    unclamped = choose_block_rows(ex.plan, shape, stage_mode='value')
-    assert unclamped > 256  # the scenario the gate exists for
-    assert ex.block_rows == unclamped  # budget pick survives un-clamped
-
-  def test_erosion_hybrid_still_clamped(self):
-    from soda_tpu.backend.pallas_kernel import (PallasExecutor,
-                                                transposed_lane_regions)
-    st = corpus.build('erosion', tile_size=(2048, 0),
-                      optimizations={'computation-reuse': 'greedy'})
-    ex = PallasExecutor(st, (8192, 2048), stage_mode='value',
-                        shift_mode='roll', interpret=True)
-    assert transposed_lane_regions(ex.plan, st, 'auto')
-    assert ex.block_rows <= 256

@@ -1,21 +1,22 @@
-"""Value-range analysis and wrap sinking (soda_tpu.optimization.ranges).
+"""Value-range analysis (soda_tpu.optimization.ranges).
 
-The range half proves no-op store wraps (value fits the declared type)
-and exact-f32 integer division. The sinking half elides a stage's wrap
-when every consumer use passes only through ring / bit-local ops into
-a wrap of the same-or-narrower width (mod-2^n homomorphism — the same
-fact that makes the reference's CR rewrite of integer reductions exact,
-computation_reuse.py:755-813). Each positive case is backed by a
-bit-exactness differential against the NumPy oracle with values that
-genuinely overflow the storage width.
+Interval arithmetic from the inputs' integer widths through every
+stage: a stage whose computed range overflows its declared type gets
+the full type range (the store wrap loses all information), one that
+fits keeps its computed range, and an integer division whose operands
+provably fit float32's mantissa is marked ``div_f32_ok``. Each case is
+backed by a bit-exactness differential of the XLA executor against the
+NumPy oracle with values that genuinely overflow the storage width, so
+every stage's store wrap is exercised.
 """
 
 import numpy as np
 
 from soda_tpu import api
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
+from soda_tpu.backend.xla import XlaExecutor
 from soda_tpu.backend.reference import output_valid_slices
+from soda_tpu.ir import nodes as ir
 from soda_tpu.optimization import ranges
 
 _HEADER = """
@@ -34,10 +35,31 @@ def _build(body: str):
   return stencil
 
 
+INT16 = (-(1 << 15), (1 << 15) - 1)
+INT32 = (-(1 << 31), (1 << 31) - 1)
+
+
+def _div_flags(stencil, name):
+  """div_f32_ok flags of every MulDiv in ``name``'s expression, in
+  tree order (read off the annotated nodes themselves)."""
+  flags = []
+
+  def walk(node):
+    flags.extend(getattr(node, 'div_f32_ok', ()) or ())
+    for attr in getattr(node, 'ATTRS', ()):
+      val = getattr(node, attr)
+      for v in val if isinstance(val, tuple) else (val,):
+        if isinstance(v, ir.Node):
+          walk(v)
+
+  walk(stencil.tensors[name].expr)
+  return flags
+
+
 def _assert_bit_exact(stencil, shape=(32, 128)):
   inputs = reference.make_test_inputs(stencil, shape)
   want = reference.run(stencil, inputs)
-  got = PallasExecutor(stencil, shape)(inputs)
+  got = XlaExecutor(stencil, shape)(inputs)
   for name in stencil.output_names:
     region = output_valid_slices(stencil, shape, name)
     np.testing.assert_array_equal(
@@ -45,28 +67,30 @@ def _assert_bit_exact(stencil, shape=(32, 128)):
 
 
 def test_sum_chain_wraps_sink():
-  # both partial sums overflow int16; their wraps sink into the
-  # output's store wrap (mod 2^16 of sums == sum of mod 2^16)
+  # both partial sums overflow int16: every stage's range is the full
+  # type range, and the executor's per-stage wraps match the oracle
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1) + x(1, 0)
 local int16: b(0, 0) = a(0, 0) + a(1, 1) + a(0, 2)
 output dram 1 int16: y(0, 0) = b(0, 0) + b(1, 0)
 """)
-  assert st._wrap_free == {'a': True, 'b': True, 'y': False}
+  table = ranges.annotate(st)
+  assert table['a'] == table['b'] == table['y'] == INT16
   _assert_bit_exact(st)
 
 
 def test_division_pins_producer():
-  # b feeds a division: its true (wrapped) value is required
+  # b feeds a division: its wrapped value fits the f32 mantissa, so
+  # the division is proven exact in float32
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1)
 local int16: b(0, 0) = a(0, 0) + a(1, 0)
 output dram 1 int16: y(0, 0) = b(0, 0) / 7
 """)
-  assert st._wrap_free['b'] is False
-  assert st._wrap_free['a'] is True  # ring use inside b, which wraps
+  assert ranges.annotate(st)['b'] == INT16
+  assert _div_flags(st, 'y') == [True]
   _assert_bit_exact(st)
 
 
@@ -76,48 +100,53 @@ input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1)
 output dram 1 int16: y(0, 0) = min(a(0, 0), a(1, 0))
 """)
-  assert st._wrap_free['a'] is False
+  table = ranges.annotate(st)
+  assert table['a'] == table['y'] == INT16
   _assert_bit_exact(st)
 
 
 def test_wider_downstream_wrap_blocks_sinking():
-  # a:int16 consumed by an int32 stage: correctness mod 2^32 of b
-  # demands the exact int16 value of a (k * 2^16 error survives mod
-  # 2^32), so a must wrap even though every use is a ring op
+  # a:int16 consumed by an int32 stage: b's product of two int16
+  # values fits int32 and keeps its computed range; y's sum does not
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1)
 local int32: b(0, 0) = int32(a(0, 0)) * int32(a(1, 0))
 output dram 1 int32: y(0, 0) = b(0, 0) + b(1, 0)
 """)
-  assert st._wrap_free['a'] is False
+  table = ranges.annotate(st)
+  assert table['a'] == INT16
+  assert table['b'] == (INT16[0] * INT16[1], INT16[0] * INT16[0])
+  assert table['y'] == INT32
   _assert_bit_exact(st)
 
 
 def test_sink_through_narrowing_cast():
-  # the int16 cast inside z's expr wraps mod 2^16 itself, so a's
-  # congruence mod 2^16 suffices even though z is stored at int32
+  # the int16 cast inside z's expr wraps to int16 itself, so z keeps
+  # the int16 range even though it is stored at int32
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1)
 output dram 1 int32: z(0, 0) = int32(int16(a(0, 0) + a(1, 0)))
 """)
-  assert st._wrap_free['a'] is True
+  assert ranges.annotate(st)['z'] == INT16
   _assert_bit_exact(st)
 
 
 def test_range_elided_consumer_blocks_sinking_when_feeding_division():
-  # b's range fits int16 (x/8 + x/8 stays in range) so b never wraps;
-  # its value flows into a division, so the analysis must demand exact
-  # producers: a (which overflows) must wrap
+  # b's range fits int16 (a/8 + a/8 stays in range), so it keeps its
+  # computed range; a overflows and must wrap before the divisions
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) + x(0, 1)
 local int16: b(0, 0) = a(0, 0) / 8 + a(1, 0) / 8
 output dram 1 int16: y(0, 0) = b(0, 0) / 3
 """)
-  assert st._wrap_free['a'] is False
-  assert st._wrap_free['b'] is True  # by range
+  table = ranges.annotate(st)
+  assert table['a'] == INT16
+  assert INT16[0] < table['b'][0] and table['b'][1] < INT16[1]
+  assert _div_flags(st, 'b') == [True, True]
+  assert _div_flags(st, 'y') == [True]
   _assert_bit_exact(st)
 
 
@@ -127,7 +156,8 @@ input dram 0 uint16: x(128, *)
 local uint16: a(0, 0) = x(0, 0) + x(0, 1) + x(0, 2)
 output dram 1 uint16: y(0, 0) = a(0, 0) + a(1, 0) + a(2, 0)
 """)
-  assert st._wrap_free['a'] is True
+  table = ranges.annotate(st)
+  assert table['a'] == table['y'] == (0, (1 << 16) - 1)
   _assert_bit_exact(st)
 
 
@@ -142,23 +172,16 @@ output dram 1 int32: y(0, 0) = (x(0, 0) * x(0, 1)) / 3
 """)
   table = ranges.annotate(st)
   assert table['y'][1] > 1  # not the (0, 1) comparison range
-  node = st.tensors['y'].expr
-  flags = []
-
-  def collect(n, _):
-    flags.extend(getattr(n, 'div_f32_ok', ()) or ())
-    return n
-
-  node.visit(collect)
-  assert True not in flags
+  assert _div_flags(st, 'y') == [False, False]  # '*', then '/'
 
 
 def test_mul_chain_sinks_through_multiplication():
-  # multiplication is a ring op: overflowing products still sink
+  # overflowing products wrap at every stage and match the oracle
   st = _build("""
 input dram 0 int16: x(128, *)
 local int16: a(0, 0) = x(0, 0) * x(0, 1)
 output dram 1 int16: y(0, 0) = a(0, 0) * a(1, 0) + a(0, 1)
 """)
-  assert st._wrap_free['a'] is True
+  table = ranges.annotate(st)
+  assert table['a'] == table['y'] == INT16
   _assert_bit_exact(st)

@@ -69,13 +69,16 @@ def test_replication_factor_validation():
 
 
 def test_replicated_xla_inner_backend():
-  """The documented XLA fallback must actually work: XlaExecutor now
-  exposes the positional fn/prepare contract (code-review regression:
-  AttributeError on first call)."""
+  """The inner XlaExecutor takes the executor's keyword options: with
+  ``cluster='coarse'`` (one jit per stage) the vmapped batch still
+  matches the oracle."""
+  from soda_tpu.backend.xla import XlaExecutor
   stencil = corpus.build('blur', replication_factor=2)
   shape = corpus.TEST_DIMS['blur']
   inputs, per_grid = _batched_inputs(stencil, shape, 2)
-  ex = ReplicatedExecutor(stencil, shape, backend='xla')
+  ex = ReplicatedExecutor(stencil, shape, cluster='coarse')
+  assert isinstance(ex.inner, XlaExecutor)
+  assert len(ex.inner.plan.groups) > 1
   got = ex(inputs)
   for k in range(2):
     want = reference.run(stencil, per_grid[k])

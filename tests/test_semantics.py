@@ -2,6 +2,7 @@
 wrap-around — the exact rules the generated hosts rely on."""
 
 import numpy as np
+import pytest
 
 from soda_tpu.backend import semantics
 from soda_tpu.ir.types import Type
@@ -65,46 +66,24 @@ def test_fast_int_div_matches_exact():
     np.testing.assert_array_equal(via_f32, exact, err_msg='d=%d' % d)
 
 
-def test_wrap_promoted_equals_wrap_then_promote():
-  """The value-mode contract: for any integer dtype, wrap_promoted(v)
-  numerically equals promote(wrap(v)) — so keeping stage values at the
-  C-promoted width is invisible to consumers (which promote anyway)."""
-  import numpy as np
-  from soda_tpu.backend.semantics import promote, wrap, wrap_promoted
+@pytest.mark.parametrize('tname', ['int16', 'uint16', 'int8', 'uint8',
+                                   'int32', 'uint32', 'int12', 'uint3'])
+def test_jnp_store_wrap_matches_numpy(tname):
+  """Stage stores wrap with C semantics under jax.numpy exactly as
+  under NumPy (the oracle), including non-power-of-two widths and the
+  extremes of the promoted range."""
+  import jax.numpy as jnp
+  from soda_tpu.backend.semantics import promote, wrap
   from soda_tpu.ir.types import Type
-
+  dtype = Type(tname)
   rng = np.random.default_rng(7)
-  for tname in ('int16', 'uint16', 'int8', 'uint8', 'int32', 'uint32',
-                'int12', 'uint3'):
-    dtype = Type(tname)
-    # values across the full promoted range, incl. extremes
-    v = rng.integers(-2**31, 2**31 - 1, 256, dtype=np.int64)
-    v = np.concatenate([v, [0, 1, -1, 2**31 - 1, -2**31]])
-    v = v.astype(np.int64)
-    compute = v.astype(promote(dtype).np_dtype)  # what a stage yields
-    got = wrap_promoted(np, compute, dtype, wrap_free=False)
-    want = wrap(np, compute, dtype).astype(np.int64)
-    np.testing.assert_array_equal(got.astype(np.int64), want,
-                                  err_msg=tname)
-
-
-def test_wrap_promoted_float_matches_wrap():
-  import numpy as np
-  from soda_tpu.backend.semantics import wrap, wrap_promoted
-  from soda_tpu.ir.types import Type
-  v = np.array([1.5, -2.75, 1e30, -0.0], np.float64)
-  f = Type('float')
-  np.testing.assert_array_equal(wrap_promoted(np, v, f),
-                                wrap(np, v, f))
-
-
-def test_wrap_promoted_trunc_toward_zero():
-  import numpy as np
-  from soda_tpu.backend.semantics import wrap_promoted
-  from soda_tpu.ir.types import Type
-  v = np.array([2.9, -2.9, 0.5, -0.5], np.float32)
-  got = wrap_promoted(np, v, Type('int16'))
-  np.testing.assert_array_equal(got, [2, -2, 0, 0])
+  v = rng.integers(-2**31, 2**31 - 1, 256, dtype=np.int64)
+  v = np.concatenate([v, [0, 1, -1, 2**31 - 1, -2**31]])
+  compute = v.astype(promote(dtype).np_dtype)  # what a stage yields
+  want = wrap(np, compute, dtype)
+  got = np.asarray(wrap(jnp, jnp.asarray(compute), dtype))
+  assert got.dtype == want.dtype
+  np.testing.assert_array_equal(got, want, err_msg=tname)
 
 
 def test_pow2_div_shift_matches_c_division():
@@ -141,12 +120,11 @@ output dram 1 int32: y(0, 0) = x(0, 0) / %d
 
 def test_unary_minus_promotes_unsigned_operand():
   """C promotes before unary minus (C11 §6.5.3.3): -uint16(1) is
-  -(int)1 == -1 — identical across the oracle (storage-width arrays)
-  and the Pallas value mode (pre-promoted arrays)."""
+  -(int)1 == -1 — identical across the oracle and the XLA executor."""
   import numpy as np
   from soda_tpu import api
   from soda_tpu.backend import reference
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
+  from soda_tpu.backend.xla import XlaExecutor
 
   src = """
 kernel: t
@@ -163,7 +141,7 @@ output dram 1 int32: o(0, 0) = (-a(0, 0)) / 2
   ins = {'a': np.full(shape, 1, np.uint16)}
   want = reference.run(st, ins)
   assert int(np.asarray(want['o'])[0, 0]) == 0  # -1 / 2 truncates to 0
-  got = PallasExecutor(st, shape)(ins)
+  got = XlaExecutor(st, shape)(ins)
   region = reference.output_valid_slices(st, shape, 'o')
   np.testing.assert_array_equal(np.asarray(got['o'])[region],
                                 np.asarray(want['o'])[region])
@@ -171,14 +149,13 @@ output dram 1 int32: o(0, 0) = (-a(0, 0)) / 2
 
 def test_half_is_storage_only_and_bit_exact_across_executors():
   """half arithmetic runs at float32 and rounds to f16 at stage
-  stores — the TPU-native semantic (Mosaic has no f16 type at all;
-  XLA:TPU stores f16 but the VPU computes f32). All executors share
-  the rule via the Evaluator, so results are bit-identical."""
+  stores. All executors share the rule via the Evaluator, so results
+  are bit-identical, fused or per stage."""
   import numpy as np
   from soda_tpu import api
   from soda_tpu.backend import reference
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
   from soda_tpu.backend.xla import XlaExecutor
+  from checks import xla_coarse
 
   src = """
 kernel: t
@@ -198,21 +175,21 @@ output dram 1 half: y(0, 0) = a(0, 0) + a(1, 0)
   region = reference.output_valid_slices(st, shape, 'y')
   w = np.asarray(want['y'])[region]
   assert w.dtype == np.float16
-  for cls in (PallasExecutor, XlaExecutor):
+  for cls in (xla_coarse, XlaExecutor):
     got = np.asarray(cls(st, shape)(ins)['y'])[region]
     np.testing.assert_array_equal(w.view(np.uint16), got.view(np.uint16))
 
 
 def test_double_raises_clearly_without_x64():
-  """TPUs have no f64 units and JAX (x64 off) silently truncates f64
-  arrays; the JAX backends refuse double stencils with guidance while
-  the NumPy oracle handles them at full precision."""
+  """With jax_enable_x64 off JAX silently truncates f64 arrays; the JAX
+  executors refuse double stencils with guidance while the NumPy
+  oracle handles them at full precision."""
   import numpy as np
   import pytest as _pytest
   from soda_tpu import api, utils
   from soda_tpu.backend import reference
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
   from soda_tpu.backend.xla import XlaExecutor
+  from soda_tpu.parallel.spmd import ShardedExecutor
 
   src = """
 kernel: t
@@ -228,15 +205,15 @@ output dram 1 double: y(0, 0) = x(0, 0) + x(0, 1)
   shape = (16, 128)
   want = reference.run(st, reference.make_test_inputs(st, shape))
   assert np.asarray(want['y']).dtype == np.float64
-  for cls in (PallasExecutor, XlaExecutor):
-    with _pytest.raises(utils.InputError):
+  for cls in (ShardedExecutor, XlaExecutor):
+    with _pytest.raises(utils.InputError, match='jax_enable_x64'):
       cls(st, shape)
 
 
 def test_wide_int_types_raise_without_x64():
   import pytest as _pytest
   from soda_tpu import api, utils
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
+  from soda_tpu.backend.xla import XlaExecutor
   src = """
 kernel: t
 burst width: 64
@@ -249,7 +226,7 @@ output dram 1 uint64: y(0, 0) = x(0, 0) + x(0, 1)
 """
   st = api.build_stencil(src)
   with _pytest.raises(utils.InputError):
-    PallasExecutor(st, (16, 128))
+    XlaExecutor(st, (16, 128))
 
 
 def test_cast_to_double_in_expr_is_guarded():
@@ -298,7 +275,7 @@ def test_abs_promotes_before_applying():
   import numpy as np
   from soda_tpu import api
   from soda_tpu.backend import reference
-  from soda_tpu.backend.pallas_kernel import PallasExecutor
+  from soda_tpu.backend.xla import XlaExecutor
   src = """
 kernel: t
 burst width: 64
@@ -314,5 +291,5 @@ output dram 1 int32: y(0, 0) = abs(x(0, 0))
   ins = {'x': np.full(shape, -128, np.int8)}
   want = reference.run(st, ins)
   assert int(np.asarray(want['y'])[0, 0]) == 128
-  got = PallasExecutor(st, shape)(ins)
+  got = XlaExecutor(st, shape)(ins)
   np.testing.assert_array_equal(np.asarray(got['y']), np.asarray(want['y']))

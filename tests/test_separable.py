@@ -4,7 +4,7 @@ import numpy as np
 
 from soda_tpu import api, corpus
 from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
+from soda_tpu.backend.xla import XlaExecutor
 from soda_tpu.backend.reference import output_valid_slices
 from soda_tpu.optimization.separable import _linear_coeffs, _rank1
 
@@ -62,11 +62,11 @@ def test_sobel_factored_and_bit_exact():
   want = reference.run(st_plain, ins)
   region = output_valid_slices(st_plain, shape, 'mag')
   got_oracle = reference.run(st, ins)
-  got_pallas = PallasExecutor(st, shape)(ins)
+  got_xla = XlaExecutor(st, shape)(ins)
   np.testing.assert_array_equal(np.asarray(want['mag'])[region],
                                 np.asarray(got_oracle['mag'])[region])
   np.testing.assert_array_equal(np.asarray(want['mag'])[region],
-                                np.asarray(got_pallas['mag'])[region])
+                                np.asarray(got_xla['mag'])[region])
 
 
 def test_float_and_small_stages_untouched():
@@ -162,7 +162,7 @@ def test_preserve_border_with_factored_stages():
   shape = (48, 128)
   ins = reference.make_test_inputs(st, shape)
   want = reference.run(st_plain, ins)
-  got = PallasExecutor(st, shape)(ins)
+  got = XlaExecutor(st, shape, cluster='coarse')(ins)
   np.testing.assert_array_equal(np.asarray(want['mag']),
                                 np.asarray(got['mag']))
 

@@ -16,14 +16,12 @@ from soda_tpu.parallel.spmd import ShardedExecutor
 from checks import assert_close_reference
 
 
-def check_sharded(name, shape, inner='xla', mesh=None, inner_opts=None,
-                  overlap='off'):
+def check_sharded(name, shape, mesh=None, overlap='off'):
   stencil = corpus.build(name)
   inputs = reference.make_test_inputs(stencil, shape)
   params = reference.make_test_params(stencil)
   want = reference.run(stencil, inputs, params)
-  ex = ShardedExecutor(stencil, shape, inner=inner, mesh=mesh,
-                       inner_opts=inner_opts, overlap=overlap)
+  ex = ShardedExecutor(stencil, shape, mesh=mesh, overlap=overlap)
   got = ex(inputs, params)
   for out_name in stencil.output_names:
     region = reference.output_valid_slices(stencil, shape, out_name)
@@ -47,19 +45,31 @@ def test_sharded_matches_oracle(name, shape):
   check_sharded(name, shape)
 
 
-def test_sharded_pallas_inner():
-  # each shard runs the fused Pallas kernel (interpret mode on CPU)
-  check_sharded('jacobi2d', (64, 32), inner='pallas')
+def _shape_for(name):
+  return (32, 32, 32) if name.endswith('3d') else (160, 64)
 
 
-def test_sharded_pallas_inner_opts():
-  # the single-chip tuned config (roll-shift value mode, stream_loop)
-  # applies per shard through inner_opts
-  check_sharded('jacobi2d', (128, 32), inner='pallas',
-                inner_opts={'block_rows': 8, 'stage_mode': 'value',
-                            'shift_mode': 'roll'})
-  check_sharded('blur', (160, 64), inner='pallas',
-                inner_opts={'block_rows': 8, 'stream_loop': 'peel'})
+@pytest.mark.parametrize('mesh_shape', [(4,), (2, 2)],
+                         ids=['mesh4', 'mesh2x2'])
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_corpus_on_four_devices(name, mesh_shape):
+  """Every corpus kernel over four devices (the four-card layouts:
+  a 1-D mesh of 4 and a 2x2 mesh); outputs span all four."""
+  from jax.sharding import Mesh
+  devices = np.array(jax.devices()[:4]).reshape(mesh_shape)
+  mesh = Mesh(devices, tuple('xy'[:len(mesh_shape)]))
+  stencil = corpus.build(name)
+  shape = _shape_for(name)
+  inputs = reference.make_test_inputs(stencil, shape)
+  params = reference.make_test_params(stencil)
+  want = reference.run(stencil, inputs, params)
+  got = ShardedExecutor(stencil, shape, mesh=mesh)(inputs, params)
+  for out_name in stencil.output_names:
+    assert len(got[out_name].sharding.device_set) == 4
+    region = reference.output_valid_slices(stencil, shape, out_name)
+    assert_close_reference(
+        np.asarray(got[out_name])[region], want[out_name][region],
+        stencil.symbol_table[out_name].is_float, f'{name}:{out_name}')
 
 
 def test_indivisible_extent_pads_and_crops():
@@ -80,11 +90,10 @@ def test_sharded_preserve_border():
   shape = (64, 32)
   inputs = reference.make_test_inputs(stencil, shape)
   want = reference.run(stencil, inputs)
-  for inner in ('xla', 'pallas'):
-    got = ShardedExecutor(stencil, shape, inner=inner)(inputs)
-    # preserve defines every cell, including the border
-    assert_close_reference(np.asarray(got['t0']), want['t0'], True,
-                           'preserve:%s' % inner)
+  got = ShardedExecutor(stencil, shape)(inputs)
+  # preserve defines every cell, including the border
+  assert_close_reference(np.asarray(got['t0']), want['t0'], True,
+                         'preserve')
 
 
 def test_sharded_preserve_border_2d_mesh_int():
@@ -116,10 +125,6 @@ def test_2d_mesh_3d_grid():
   check_sharded('heat3d', (32, 64, 32), mesh=_mesh_2d(2, 4))
 
 
-def test_sharded_inner_auto():
-  check_sharded('jacobi2d', (64, 32), inner='auto')
-
-
 def test_chained_multi_step_driver():
   """soda_tpu.chained: N applications in ONE dispatch, outputs feeding
   inputs, on both single-chip and sharded executors."""
@@ -135,7 +140,7 @@ def test_chained_multi_step_driver():
     out = reference.run(stencil, {'t1': want['t1']})
     want = {'t1': out['t0']}
 
-  for ex in (get_executor(stencil, shape, 'pallas'),
+  for ex in (get_executor(stencil, shape),
              ShardedExecutor(stencil, shape)):
     fn = soda_tpu.chained(ex, 3)
     (got,) = fn(*ex.prepare(inputs))
@@ -184,62 +189,6 @@ def test_dram_banks_pick_default_mesh_width():
   assert ShardedExecutor(corpus.build('blur'), (80, 64)).mesh.devices.size == 8
 
 
-def test_multislice_dim_axes_flattened_ring():
-  """Multi-slice layout: one array axis sharded over ('slice', 'x');
-  the halo ring flattens across the slice boundary (SURVEY 5.8: ICI
-  within a slice, DCN across)."""
-  from jax.sharding import Mesh
-  stencil = corpus.build('jacobi2d')
-  shape = (64, 32)
-  devices = np.array(jax.devices()).reshape(2, 4)
-  mesh = Mesh(devices, ('slice', 'x'))
-  inputs = reference.make_test_inputs(stencil, shape)
-  want = reference.run(stencil, inputs)
-  ex = ShardedExecutor(stencil, shape, mesh=mesh,
-                       dim_axes=[('slice', 'x')])
-  got = ex(inputs)
-  region = reference.output_valid_slices(stencil, shape)
-  assert_close_reference(np.asarray(got['t0'])[region],
-                         want['t0'][region], True, 'multislice')
-
-
-def test_multislice_2d_decomposition():
-  # 3-level: streaming axis over ('slice', 'x') and lane axis over 'y'
-  from jax.sharding import Mesh
-  stencil = corpus.build('blur')
-  shape = (64, 64)
-  devices = np.array(jax.devices()).reshape(2, 2, 2)
-  mesh = Mesh(devices, ('slice', 'x', 'y'))
-  inputs = reference.make_test_inputs(stencil, shape)
-  want = reference.run(stencil, inputs)
-  ex = ShardedExecutor(stencil, shape, mesh=mesh,
-                       dim_axes=[('slice', 'x'), 'y'])
-  got = ex(inputs)
-  region = reference.output_valid_slices(stencil, shape, 'blur_y')
-  assert np.array_equal(np.asarray(got['blur_y'])[region],
-                        want['blur_y'][region])
-
-
-def test_dim_axes_validation():
-  from jax.sharding import Mesh
-  stencil = corpus.build('jacobi2d')
-  devices = np.array(jax.devices()).reshape(2, 4)
-  mesh = Mesh(devices, ('slice', 'x'))
-  with pytest.raises(Exception, match='unknown mesh axis'):
-    ShardedExecutor(stencil, (64, 32), mesh=mesh, dim_axes=['nope'])
-  with pytest.raises(Exception, match='used twice'):
-    ShardedExecutor(stencil, (64, 32), mesh=mesh,
-                    dim_axes=[('slice', 'slice')])
-
-
-def test_inner_opts_may_name_layer_owned_keys():
-  """interpret/apply_preserve_border in inner_opts must not collide
-  with the sharded layer's own kwargs (r3 review find: TypeError)."""
-  check_sharded('blur', (64, 64), inner='pallas',
-                inner_opts={'interpret': True, 'block_rows': 16,
-                            'apply_preserve_border': True})
-
-
 @pytest.mark.parametrize('name,shape', [
     ('jacobi2d', (64, 32)),    # iterate=2: two sweeps on one exchange
     ('blur', (80, 64)),        # int multi-stage
@@ -247,7 +196,7 @@ def test_inner_opts_may_name_layer_owned_keys():
     ('erosion', (320, 64)),    # 19-tap halo: 9 rows each way
 ])
 def test_sharded_overlap_matches_oracle(name, shape):
-  """VERDICT r4 #6: comm/compute overlap is semantics-preserving."""
+  """Comm/compute overlap is semantics-preserving."""
   check_sharded(name, shape, overlap='on')
 
 
@@ -264,9 +213,9 @@ def test_overlap_preserve_border():
 def test_overlap_validation():
   from soda_tpu import utils
   stencil = corpus.build('jacobi2d')
-  with pytest.raises(utils.InputError, match='xla inner'):
-    ShardedExecutor(stencil, (64, 32), inner='pallas', overlap='on')
-  with pytest.raises(utils.InputError, match='xla inner'):
+  with pytest.raises(utils.InputError, match="'off' or 'on'"):
+    ShardedExecutor(stencil, (64, 32), overlap='auto')
+  with pytest.raises(utils.InputError, match='single-axis'):
     ShardedExecutor(stencil, (64, 32), mesh=_mesh_2d(4, 2), overlap='on')
   # erosion halo is 9+9=18 rows; 80/8 = 10-row shards can't band it
   with pytest.raises(utils.InputError, match='total halo'):
@@ -341,7 +290,7 @@ def _count_collective_permutes(ex, inputs, params=None):
 
 
 def test_collective_structure_one_exchange_per_input_axis():
-  """VERDICT r3 #8: the spmd latency model (spmd.py docstring) assumes
+  """The spmd latency model (spmd.py docstring) assumes
   exactly ONE halo exchange per input per sharded axis per step — a
   lo-side and a hi-side ppermute — with iterate sweeps and stage
   chains running on the exchanged extension, never re-exchanging.

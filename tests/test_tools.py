@@ -1,4 +1,5 @@
-"""Tool / aux-subsystem tests: calc-cost, compiled stats, cache."""
+"""Tool / aux-subsystem tests: calc-cost, compiled stats, cache, the
+device peak table, and the roofline estimate."""
 
 import json
 import subprocess
@@ -6,14 +7,17 @@ import sys
 
 import pathlib
 
+import jax
 import numpy as np
+import pytest
 
-from soda_tpu import corpus
+from soda_tpu import corpus, profiling, utils
+from soda_tpu.backend import get_executor, reference
+from soda_tpu.model import estimate
+from soda_tpu.model.compiled import compiled_stats
 
 REPO = str(pathlib.Path(__file__).resolve().parent.parent)
-from soda_tpu.backend import reference
-from soda_tpu.backend.pallas_kernel import PallasExecutor
-from soda_tpu.model.compiled import compiled_stats
+H100 = 'NVIDIA H100 80GB HBM3'
 
 
 def test_calc_cost_cli():
@@ -36,27 +40,87 @@ def test_calc_cost_cli():
 def test_compiled_stats_reports_memory():
   stencil = corpus.build('blur')
   shape = corpus.TEST_DIMS['blur']
-  ex = PallasExecutor(stencil, shape)
+  ex = get_executor(stencil, shape)
   inputs = reference.make_test_inputs(stencil, shape)
   stats = compiled_stats(ex, inputs)
-  assert stats.get('output_size_in_bytes') or \
-      stats.get('memory_analysis_error') is None
+  assert stats['output_size_in_bytes'] == np.prod(shape) * 2  # uint16
+  assert stats['argument_size_in_bytes'] == np.prod(shape) * 2
 
 
-def test_cache_enable(tmp_path):
+def test_cache_follows_env_var(monkeypatch, tmp_path):
+  """With JAX_COMPILATION_CACHE_DIR set, JAX's own setting is used and
+  the code sets no other directory."""
   from soda_tpu import cache
-  path = cache.enable(str(tmp_path / 'xla_cache'))
-  import os
-  assert os.path.isdir(path)
+  monkeypatch.setenv(cache.ENV_VAR, str(tmp_path / 'from_env'))
+  before = jax.config.jax_compilation_cache_dir
+  try:
+    assert cache.enable() == str(tmp_path / 'from_env')
+    assert jax.config.jax_compilation_cache_dir == before
+  finally:
+    jax.config.update('jax_compilation_cache_dir', before)
 
 
-def test_perf_report_builds_from_committed_record():
-  """PARITY's headline table is generated from the recorded artifact
-  (bench_last_result.json), never an in-process run."""
-  from soda_tpu.tools import perf_report
-  report = perf_report.build_report()
-  assert report['rows'], 'no kernels in the committed record'
-  for row in report['rows']:
-    # the model-honesty invariant, visible in the report itself
-    assert row['roofline_frac'] <= row['ceiling'] * 1.03 + 1e-6
-  assert 0.0 < report['geomean'] <= 1.2
+def test_cache_defaults_to_fixed_dir_in_checkout(monkeypatch):
+  from soda_tpu import cache
+  monkeypatch.delenv(cache.ENV_VAR, raising=False)
+  before = jax.config.jax_compilation_cache_dir
+  try:
+    path = cache.enable()
+    assert path == str(pathlib.Path(REPO) / '.jax_cache')
+    assert jax.config.jax_compilation_cache_dir == path
+  finally:
+    jax.config.update('jax_compilation_cache_dir', before)
+  ignored = (pathlib.Path(REPO) / '.gitignore').read_text().split()
+  assert '.jax_cache/' in ignored
+
+
+def test_peak_table_knows_the_h100():
+  p = profiling.peak(H100)
+  assert p.hbm_bytes_per_s == 3.35e12
+  assert p.flops_per_s == 67e12
+
+
+def test_peak_of_unknown_device_raises():
+  with pytest.raises(utils.InputError, match='no published peak'):
+    profiling.peak(jax.devices()[0])  # the CPU test device
+  with pytest.raises(utils.InputError):
+    profiling.peak('NVIDIA H100 PCIe')
+
+
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_roofline_estimate(name):
+  """bytes = every input read once + every output written once; ops =
+  the executed stage schedule; the bound is the larger time."""
+  stencil = corpus.build(name)
+  shape = corpus.DEVICE_DIMS[name]
+  est = estimate.estimate(stencil, shape, H100)
+  cells = float(np.prod(shape))
+  width = sum(stencil.symbol_table[n].width_in_bytes
+              for n in stencil.input_names + stencil.output_names)
+  assert est['hbm_bytes'] == cells * width
+  assert est['flops_per_cell'] == sum(estimate.op_counts(stencil).values())
+  memory_s = est['hbm_bytes'] / 3.35e12
+  compute_s = est['flops_per_cell'] * cells / 67e12
+  assert est['roofline_time_s'] == pytest.approx(max(memory_s, compute_s))
+  assert est['bound'] == ('memory' if memory_s >= compute_s else 'compute')
+  assert est['stages'] >= 1
+
+
+def test_estimate_model_file_overrides_table():
+  stencil = corpus.build('jacobi2d')
+  est = estimate.estimate(stencil, (512, 64), model_params={
+      'name': 'toy', 'hbm_gbps': 100.0, 'gflops': 1.0})
+  assert est['device'] == 'toy'
+  assert est['memory_time_s'] == pytest.approx(512 * 64 * 8 / 100e9)
+  assert est['compute_time_s'] == pytest.approx(512 * 64 * 10 / 1e9)
+  assert est['bound'] == 'compute'
+
+
+def test_time_per_call_blocks_until_ready():
+  stencil = corpus.build('jacobi2d')
+  ex = get_executor(stencil, (64, 64))
+  args = ex.prepare(reference.make_test_inputs(stencil, (64, 64)))
+  compiled, compile_s, dt = profiling.compile_and_time(ex.fn, args, reps=3)
+  assert compile_s > 0 and dt > 0
+  (out,) = compiled(*args)
+  assert out.shape == (64, 64)

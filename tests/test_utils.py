@@ -35,24 +35,22 @@ def test_toposort_insertion_order():
   assert utils.toposort_flatten(graph, sort=False) == ['z', 'y', 'x']
 
 
-def test_device_reachable_times_out_cleanly(monkeypatch):
-  """A hung tunnel must yield False within the bound, never an
-  exception (the in-thread probe poisons jax's backend-init lock on
-  timeout, so the CLI pre-flight uses this subprocess probe)."""
-  import subprocess
+@pytest.mark.parametrize('got, want, miss', [
+    (1.00005, 1.0, False),    # inside both bounds
+    (1.2e-4, 5e-5, False),    # relative miss, absolute pass
+    (2e4 + 1.0, 2e4, False),  # absolute miss, relative pass
+    (1.001, 1.0, True),       # outside both bounds
+    (-1.0, 1.0, True),
+], ids=['close', 'abs-ok', 'rel-ok', 'both-miss', 'sign'])
+def test_criterion_misses_needs_both_bounds(got, want, miss):
+  """A cell fails only when its error exceeds the threshold both
+  absolutely and relative to the oracle value."""
+  import numpy as np
+  mask = utils.criterion_misses(np.float32([got]), np.float32([want]), 1e-4)
+  assert mask.tolist() == [miss]
 
-  def fake_run(*a, **k):
-    raise subprocess.TimeoutExpired(cmd='probe', timeout=k['timeout'])
 
-  monkeypatch.setattr(subprocess, 'run', fake_run)
-  assert utils.device_reachable(timeout_s=0.1) is False
-
-
-def test_device_reachable_true_on_success(monkeypatch):
-  import subprocess
-  import types
-
-  monkeypatch.setattr(
-      subprocess, 'run',
-      lambda *a, **k: types.SimpleNamespace(returncode=0))
-  assert utils.device_reachable(timeout_s=1.0) is True
+def test_threshold_for_contrast_prefix():
+  assert utils.threshold_for('contrast') == 1e-3
+  assert utils.threshold_for('contrast:out') == 1e-3
+  assert utils.threshold_for('jacobi2d') == utils.DEFAULT_THRESHOLD
